@@ -1,0 +1,48 @@
+"""Carry a kernel's state across from numpy arrays.
+
+``sampler_from_numpy`` builds the port's ``NDPPSampler`` from the arrays of
+an already preprocessed sampler (for example the reference's, read out as
+numpy), so that both sample from bit-identical state and their draws can be
+compared key for key.  ``params_from_numpy`` does the same for the factors
+of ``L = V V^T + B (D - D^T) B^T``.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .core.rejection import NDPPSampler
+from .core.tree import SampleTree
+from .core.types import NDPPParams, SpectralNDPP
+from .device import DeviceLike, resolve_device
+
+
+def _f32(a, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32)).to(dev)
+
+
+def sampler_from_numpy(Z, sigma, lam, W, levels: Sequence, block: int, M: int,
+                       device: DeviceLike = None) -> NDPPSampler:
+    """NDPPSampler from a spectral form (Z (M, 2K), sigma (K/2,)) and a
+    proposal tree (lam (R,), padded rows W (M_pad, R), per-level node arrays
+    root first, each (2^l, R, R)).  The levels are stacked into the port's
+    one contiguous node array."""
+    dev = resolve_device(device)
+    nodes = np.concatenate([np.asarray(lv, np.float32).reshape(
+        -1, *np.shape(lv)[-2:]) for lv in levels])
+    tree = SampleTree(W=_f32(W, dev), lam=_f32(lam, dev),
+                      nodes=_f32(nodes, dev), block=int(block), M=int(M))
+    if tree.n_blocks * block != tree.W.shape[0] or \
+            nodes.shape[0] != 2 * tree.n_blocks - 1:
+        raise ValueError(f"W rows {tree.W.shape[0]} and {nodes.shape[0]} "
+                         f"nodes do not form a tree of blocks of {block}")
+    return NDPPSampler(sp=SpectralNDPP(Z=_f32(Z, dev), sigma=_f32(sigma, dev)),
+                       tree=tree)
+
+
+def params_from_numpy(V, B, D, device: DeviceLike = None) -> NDPPParams:
+    """NDPPParams with float32 tensors on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    return NDPPParams(V=_f32(V, dev), B=_f32(B, dev), D=_f32(D, dev))

@@ -1,0 +1,135 @@
+"""Counter-based threefry2x32 keys, bit-exact with ``jax.random``.
+
+Every draw of the sampler is keyed by its position (proposal ``t`` of a
+request is ``fold_in(request_key, t)``), so the port must reproduce the
+reference's key schedule exactly, not merely its distribution: a stateful
+``torch.Generator`` would tie draws to the batching schedule.  This module
+is the reference's ``jax._src.prng`` threefry2x32 implementation in the
+layout of ``jax_threefry_partitionable=False`` (the layout that wrote the
+reference's golden files), written with torch integer ops so it runs on
+any device.
+
+A key is an int64 tensor of shape ``(..., 2)`` holding two uint32 words;
+every function takes a batch of keys (leading dims ``...``) and treats each
+key independently, as ``jax.vmap`` over the reference function would.
+uint32 arithmetic is int64 arithmetic masked to the low 32 bits.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Union
+
+import numpy as np
+import torch
+
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_ONE_F32_BITS = 0x3F800000          # bit pattern of float32 1.0
+_F32_NMANT = 23
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+Shape = Union[int, Sequence[int]]
+
+
+def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
+    return ((v << r) | (v >> (32 - r))) & _MASK
+
+
+def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
+                 x2: torch.Tensor):
+    """The threefry2x32 block hash (20 rounds) on broadcastable uint32
+    words held in int64 tensors.  Returns the two output words."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    a = (x1 + ks[0]) & _MASK
+    b = (x2 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            a = (a + b) & _MASK
+            b = _rotl(b, r) ^ a
+        a = (a + ks[(i + 1) % 3]) & _MASK
+        b = (b + ks[(i + 2) % 3] + (i + 1)) & _MASK
+    return a, b
+
+
+def _hash_counts(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``threefry_2x32(key, iota(n))`` per key: the count vector is cut in
+    two halves (zero-padded to even length), hashed as word pairs, and the
+    two output halves concatenated.  keys (..., 2) -> (..., n)."""
+    half = (n + 1) // 2
+    count = torch.arange(2 * half, dtype=torch.int64, device=keys.device)
+    if n % 2:
+        count[-1] = 0
+    k1 = keys[..., 0:1]
+    k2 = keys[..., 1:2]
+    a, b = threefry2x32(k1, k2, count[:half], count[half:])
+    return torch.cat([a, b], dim=-1)[..., :n]
+
+
+def as_key(key, device=None) -> torch.Tensor:
+    """Raw key(s) as an int64 ``(..., 2)`` tensor (accepts numpy uint32
+    keys as the reference's ``jax.random.PRNGKey`` returns them)."""
+    if isinstance(key, torch.Tensor):
+        return key.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(key, np.int64), device=device)
+
+
+def PRNGKey(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` under 32-bit JAX: the seed is an int32,
+    and the key is ``[seed >> 32, seed & 0xFFFFFFFF]`` with the high word
+    always 0 (a logical shift of a 32-bit value by 32)."""
+    s = int(seed)
+    if not -(1 << 31) <= s < (1 << 31):
+        raise OverflowError(f"seed {s} does not fit the int32 seed of 32-bit "
+                            f"JAX keys")
+    return torch.tensor([0, s & _MASK], dtype=torch.int64, device=device)
+
+
+def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` per key: (..., 2) -> (..., num, 2)."""
+    bits = _hash_counts(keys, 2 * num)
+    return bits.reshape(tuple(keys.shape[:-1]) + (num, 2))
+
+
+def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in`` per key: keys (..., 2), data an integer or an
+    integer tensor broadcastable to ``keys.shape[:-1]`` (taken mod 2^32,
+    as the reference casts it to uint32).  Returns (..., 2)."""
+    d = torch.as_tensor(data, dtype=torch.int64, device=keys.device) & _MASK
+    a, b = threefry2x32(keys[..., 0], keys[..., 1],
+                        torch.zeros_like(d), d)
+    return torch.stack(torch.broadcast_tensors(a, b), dim=-1)
+
+
+def random_bits(keys: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """32-bit ``random_bits`` per key: (..., 2) -> (..., *shape) uint32
+    words in int64."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    n = int(np.prod(shape, dtype=np.int64))
+    return _hash_counts(keys, n).reshape(tuple(keys.shape[:-1]) + shape)
+
+
+def uniform(keys: torch.Tensor, shape: Shape = (), minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` (float32) per key: the top 23 bits of each
+    word become the mantissa of a float in [1, 2), minus 1, then scaled
+    into [minval, maxval) in float32 exactly as the reference does."""
+    bits = random_bits(keys, shape)
+    fbits = (bits >> (32 - _F32_NMANT)) | _ONE_F32_BITS
+    floats = fbits.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=keys.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=keys.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def gumbel(keys: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+    """``jax.random.gumbel`` in its default "low" mode:
+    ``-log(-log(u))`` with ``u`` uniform on [tiny, 1)."""
+    u = uniform(keys, shape, minval=_F32_TINY, maxval=1.0)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical`` over the last axis, one key per row:
+    keys (..., 2), logits (..., C) -> (...,) int64 — the Gumbel-argmax
+    (first maximum on ties, as ``jnp.argmax``)."""
+    g = gumbel(keys, logits.shape[-1:])
+    return torch.argmax(g + logits, dim=-1)

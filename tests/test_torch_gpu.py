@@ -1,0 +1,113 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Marked ``gpu``: they skip without a CUDA device (a CUDA kernel has
+no CPU mode) and run on the H100 with ``pytest -m gpu tests/test_torch_gpu.py``.
+
+Tolerances: the kernels sum in float32 in another order than cuBLAS /
+PyTorch's reductions, so values agree to rtol 1e-5 (Gram) and 1e-4 of the
+largest score (descent); block ids on these well-separated random inputs
+must be equal.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import random as trandom
+from repro_torch.core import SpectralNDPP, preprocess, sample_batched_many
+from repro_torch.core.rejection import NDPPSampler
+from repro_torch.kernels.spec_round import ops as spec_ops
+from repro_torch.kernels.spec_round.ref import descend_score_ref
+from repro_torch.kernels.tree_sum import ops as tree_sum_ops
+from repro_torch.kernels.tree_sum.ref import block_outer_sums_ref
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card "
+                    "(on the H100: pytest -m gpu tests/test_torch_gpu.py)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n,block,r", [(5, 4, 8), (3, 5, 33), (7, 13, 130),
+                                       (16, 64, 200)])
+def test_block_outer_sums_kernel(cuda, n, block, r):
+    rng = np.random.default_rng(n * 1000 + r)
+    w = torch.as_tensor(rng.normal(size=(n * block, r)).astype(np.float32),
+                        device=cuda)
+    before = tree_sum_ops.launches
+    got = tree_sum_ops.block_outer_sums(w, block)
+    torch.cuda.synchronize()
+    assert tree_sum_ops.launches == before + 1
+    want = block_outer_sums_ref(w, block)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    assert torch.equal(got, got.transpose(1, 2))
+
+
+def _tree(rng, depth, r, dev):
+    leaves = rng.normal(size=(1 << depth, r, r)).astype(np.float32)
+    nodes = np.einsum("nik,njk->nij", leaves, leaves)
+    levels = [nodes]
+    for _ in range(depth):
+        nodes = nodes.reshape(-1, 2, r, r).sum(axis=1)
+        levels.append(nodes)
+    return torch.as_tensor(np.concatenate(levels[::-1]), device=dev)
+
+
+@pytest.mark.parametrize("depth,block,r,n", [(0, 4, 8, 3), (3, 4, 8, 5),
+                                             (6, 3, 40, 9), (5, 8, 33, 12),
+                                             (2, 8, 130, 4), (8, 64, 200, 16)])
+def test_descend_score_kernel(cuda, depth, block, r, n):
+    rng = np.random.default_rng(depth * 1000 + block * 100 + r)
+    nodes = _tree(rng, depth, r, cuda)
+    w = torch.as_tensor(rng.normal(size=((1 << depth) * block, r))
+                        .astype(np.float32), device=cuda)
+    qh = rng.normal(size=(n, r, r)).astype(np.float32)
+    q = torch.as_tensor(np.einsum("nik,njk->nij", qh, qh) / r, device=cuda)
+    us = torch.as_tensor(rng.uniform(size=(n, max(depth, 1)))
+                         .astype(np.float32), device=cuda)
+    before = spec_ops.launches
+    blk, sc = spec_ops.descend_score(nodes, w, block, q, us)
+    torch.cuda.synchronize()
+    assert spec_ops.launches == before + 1
+    blk_ref, sc_ref = descend_score_ref(nodes, w, block, q, us)
+    assert torch.equal(blk, blk_ref)
+    torch.testing.assert_close(sc, sc_ref, rtol=1e-4,
+                               atol=1e-4 * float(sc_ref.abs().max()))
+
+
+def test_descend_score_refuses_wide_r(cuda):
+    r = spec_ops.MAX_R + 1
+    nodes = torch.zeros((1, r, r), device=cuda)
+    with pytest.raises(ValueError, match="R <="):
+        spec_ops.descend_score(nodes, torch.zeros((4, r), device=cuda), 4,
+                               torch.zeros((2, r, r), device=cuda),
+                               torch.zeros((2, 1), device=cuda))
+
+
+def test_card_draws_match_cpu_draws(cuda):
+    """The same sampler state on the CPU (plain versions) and on the card
+    (kernels) gives the same draws for the same keys: M=256, K=4 as the
+    reference's golden kernel."""
+    rng = np.random.default_rng(31415)
+    v = (rng.normal(size=(256, 4)) * 0.1).astype(np.float32)
+    b = (rng.normal(size=(256, 4)) * 0.1).astype(np.float32)
+    d = rng.normal(size=(4, 4)).astype(np.float32)
+    cpu = preprocess(v, b, d, block=4, device="cpu")
+    card = NDPPSampler(
+        sp=SpectralNDPP(Z=cpu.sp.Z.to(cuda), sigma=cpu.sp.sigma.to(cuda)),
+        tree=dataclasses.replace(cpu.tree, W=cpu.tree.W.to(cuda),
+                                 lam=cpu.tree.lam.to(cuda),
+                                 nodes=cpu.tree.nodes.to(cuda)))
+    before = spec_ops.launches
+    want = sample_batched_many(cpu, trandom.PRNGKey(0), 8, n_spec=4,
+                               max_trials=100)
+    got = sample_batched_many(card, trandom.PRNGKey(0), 8, n_spec=4,
+                              max_trials=100)
+    assert spec_ops.launches > before
+    for name in ("items", "mask", "trials", "accepted"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name

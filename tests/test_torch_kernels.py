@@ -1,0 +1,102 @@
+"""The port's plain kernel versions against the reference on the same
+arrays (numpy-seeded inputs, both run on the CPU).
+
+``block_outer_sums`` is held against both the reference's Pallas kernel in
+interpret mode and its jnp oracle (rtol 1e-5, atol 1e-6: float32 sums in
+another order).  ``descend_score`` is held against the reference's jnp
+oracle, which is what the reference runs off the TPU; block ids must be
+equal and scores within rtol 1e-5, atol 1e-6.  The CUDA kernels themselves
+are held against these plain versions on the card (``test_torch_gpu.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.spec_round.ref import descend_score_ref as jax_descend_score
+from repro.kernels.tree_sum import ops as jax_tree_sum
+from repro.kernels.tree_sum.ref import block_outer_sums_ref as jax_outer_sums
+from repro_torch.kernels.spec_round import ops as spec_ops
+from repro_torch.kernels.spec_round import ref as spec_ref
+from repro_torch.kernels.tree_sum import ops as tree_sum_ops
+
+
+def random_tree_nodes(rng, depth, r):
+    """A mass-consistent tree (random PSD leaves, parents the sum of their
+    children) as per-level arrays, root first."""
+    leaves = rng.normal(size=(1 << depth, r, r)).astype(np.float32)
+    nodes = np.einsum("nik,njk->nij", leaves, leaves)
+    levels = [nodes]
+    for _ in range(depth):
+        nodes = nodes.reshape(-1, 2, r, r).sum(axis=1)
+        levels.append(nodes)
+    return tuple(reversed(levels))
+
+
+def descend_inputs(depth, block, r, n):
+    rng = np.random.default_rng(depth * 1000 + block * 100 + r)
+    levels = random_tree_nodes(rng, depth, r)
+    w = rng.normal(size=((1 << depth) * block, r)).astype(np.float32)
+    qh = rng.normal(size=(n, r, r)).astype(np.float32)
+    q = (np.einsum("nik,njk->nij", qh, qh) / r).astype(np.float32)
+    us = rng.uniform(size=(n, max(depth, 1))).astype(np.float32)
+    return levels, w, q, us
+
+
+@pytest.mark.parametrize("n,block,r", [(5, 4, 8), (8, 8, 16), (2, 16, 130),
+                                       (3, 5, 33)])
+def test_block_outer_sums_matches_reference(n, block, r):
+    rng = np.random.default_rng(n * 100 + r)
+    w = rng.normal(size=(n * block, r)).astype(np.float32)
+    got = tree_sum_ops.block_outer_sums(torch.as_tensor(w), block).numpy()
+    pallas = np.asarray(jax_tree_sum.block_outer_sums(
+        jnp.asarray(w), block, force_interpret=True))
+    oracle = np.asarray(jax_outer_sums(jnp.asarray(w), block))
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=1e-6)
+
+
+def test_block_outer_sums_writes_out():
+    w = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(12, 6)).astype(np.float32))
+    out = torch.empty((3, 6, 6))
+    res = tree_sum_ops.block_outer_sums(w, 4, out=out)
+    assert res is out
+    assert torch.equal(out, tree_sum_ops.block_outer_sums(w, 4))
+    with pytest.raises(ValueError):
+        tree_sum_ops.block_outer_sums(w, 5)
+
+
+@pytest.mark.parametrize("depth,block,r,n", [(3, 4, 8, 5), (5, 8, 16, 12),
+                                             (6, 2, 40, 3), (2, 8, 130, 4),
+                                             (0, 4, 8, 3), (7, 3, 12, 6)])
+def test_descend_score_matches_reference(depth, block, r, n):
+    levels, w, q, us = descend_inputs(depth, block, r, n)
+    blk_ref, sc_ref = jax_descend_score(
+        tuple(jnp.asarray(lv) for lv in levels), jnp.asarray(w), block,
+        jnp.asarray(q), jnp.asarray(us))
+    nodes = torch.as_tensor(np.concatenate(levels))
+    launches = spec_ops.launches
+    blk, sc = spec_ops.descend_score(nodes, torch.as_tensor(w), block,
+                                     torch.as_tensor(q), torch.as_tensor(us))
+    assert spec_ops.launches == launches   # the plain version is no launch
+    np.testing.assert_array_equal(blk.numpy(), np.asarray(blk_ref))
+    np.testing.assert_allclose(sc.numpy(), np.asarray(sc_ref),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_descend_score_checks_shapes():
+    levels, w, q, us = descend_inputs(3, 4, 8, 2)
+    nodes = torch.as_tensor(np.concatenate(levels))
+    with pytest.raises(ValueError):
+        spec_ops.descend_score(nodes[1:], torch.as_tensor(w), 4,
+                               torch.as_tensor(q), torch.as_tensor(us))
+    with pytest.raises(ValueError):
+        spec_ops.descend_score(nodes, torch.as_tensor(w), 4,
+                               torch.as_tensor(q), torch.as_tensor(us[:, :2]))
+
+
+def test_shallow_max_matches_reference():
+    from repro.kernels.spec_round import ref as jax_spec_ref
+
+    assert spec_ref._SHALLOW_MAX == jax_spec_ref._SHALLOW_MAX
