@@ -4,11 +4,12 @@
 // block_outer_sums_pallas (_tree_sum_kernel): for every leaf block n of
 // `block` consecutive rows of W (n_blocks*block, R), Sigma_n = W_n^T W_n.
 //
-// Bound on the H100: float32 operations.  The work is 2 * n_blocks * block
-// * R^2 FLOP against (n_blocks*block*R + n_blocks*R^2) * 4 bytes; at the
-// main path's shape (16,384 blocks of 64 rows, R = 200) that is 84 GFLOP,
-// 1.25 ms at the 67 TFLOP/s fp32 peak, against 3.5 GB, 1.03 ms at
-// 3.35 TB/s.  The output (2.6 GB) is larger than the input (0.84 GB).
+// Bound on the H100: bytes.  Sigma_n is symmetric, so the work is
+// n_blocks * block * R(R+1) FLOP against (n_blocks*block*R +
+// n_blocks*R^2) * 4 bytes; at the main path's shape (16,384 blocks of 64
+// rows, R = 200) that is 42 GFLOP, 0.63 ms at the 67 TFLOP/s fp32 peak,
+// against 3.46 GB, 1.03 ms at 3.35 TB/s.  The output (2.6 GB) is larger
+// than the input (0.84 GB).
 //
 // Design: one CTA per (leaf block, 32 x 32 output tile), tiles of a block
 // adjacent in the 1-D grid so the block's rows are fetched from HBM once

@@ -17,7 +17,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 from typing import Dict, Iterable, List
 
@@ -26,7 +25,6 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -58,44 +56,32 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
-    """Launch nvcc for one source; returns (process, target, tmp) or None
-    when the library is already built."""
-    out = _lib_path(name)
-    if out.exists():
-        return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, out, tmp
-
-
-def _finish(name: str, started) -> None:
-    proc, out, tmp = started
-    log, _ = proc.communicate()
-    (BUILD_DIR / f"{name}.log").write_text(log)
-    if proc.returncode != 0:
-        raise KernelBuildError(f"nvcc failed on {name}.cu "
-                               f"(exit {proc.returncode}):\n{log}")
-    os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
-
-
 def build(names: Iterable[str]) -> None:
-    """Build the named kernels, one ``nvcc`` per source, all started
-    together; raises ``KernelBuildError`` if any fails."""
-    with _LOCK:
-        started = {n: s for n in names if (s := _start(n)) is not None}
-        errors = []
-        for n, s in started.items():
-            try:
-                _finish(n, s)
-            except KernelBuildError as e:
-                errors.append(str(e))
-        if errors:
-            raise KernelBuildError("\n".join(errors))
+    """Build the named kernels that are not built yet, one ``nvcc`` per
+    source, all started together; raises ``KernelBuildError`` if any
+    fails."""
+    jobs = []
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        jobs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    errors = []
+    for name, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        (BUILD_DIR / f"{name}.log").write_text(log)
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):"
+                          f"\n{log}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
+    if errors:
+        raise KernelBuildError("\n".join(errors))
 
 
 def build_log(name: str) -> str:
@@ -110,10 +96,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build([name])
-        with _LOCK:
-            lib = _LIBS.get(name)
-            if lib is None:
-                lib = _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
+        lib = _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
     return lib
 
 
