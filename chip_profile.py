@@ -26,13 +26,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out-dir", default=os.path.join(ROOT, "profile_out"))
@@ -45,6 +38,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
+    from chip_smoke import _device_us
     from repro_torch.core import (
         NDPPSampler,
         construct_tree,

@@ -14,12 +14,27 @@ kernel against its plain PyTorch version on the card:
    with 8 slots and automatic speculation depth serving 64 requests cold
    (first solver handles and allocator growth; other seeds) and 64 timed
    warm requests; every result is checked, and the kernels' launch counts
-   are read around this run only -> one ``{"main_path": ...}`` line;
-3. each kernel against its plain version at the main path's shapes, on
-   inputs the main path itself produced (its tree rows; its first round's
-   step-0 and downdated projectors and uniforms), with times, bounds and
-   launch counts -> one ``{"kernels": [...]}`` line;
-4. the last line: ``{"ok": true, "device": {...}}``.
+   are read around this run only -> one ``{"main_path": ...}`` line (every
+   later phase sets the counts to 0 before it and reads them after it);
+3. the dynamic catalog at the same width: a ``Catalog`` of the main path's
+   factors with 2^20 rows of capacity and 2^20 - 4,096 live items
+   (staleness 1), four timed mutation batches (insert 2,048 items into the
+   slack, update 1,024, delete 1,024 with the snapshot deferred, refresh),
+   the maintained tree held ``torch.equal`` to a full rebuild, then an
+   8-slot engine serving 64 cold and 64 timed requests with a
+   ``swap_catalog`` to a further-deleted version after its first tick:
+   pre-swap requests must equal an engine that never swapped, and no
+   request may draw an item deleted in its version -> ``{"catalog": ...}``;
+4. the MCMC backend on the main path's spectral state: fixed-size chains
+   (k = 8, the main path's mean |Y|) from stochastic-greedy starts, 8
+   slots, 64 requests, each result 8 distinct items with det(L_Y) > 0
+   -> ``{"mcmc": ...}``;
+5. each kernel against its plain version at its path's shapes, on inputs
+   the paths themselves produced (the main path's tree rows and first
+   round's projectors and uniforms; the catalog's update batch; the greedy
+   start's score matrices), with times, bounds and launch counts by path
+   -> one ``{"kernels": [...]}`` line;
+6. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero (an exception's traceback, or a FAIL line)
 before the last line: no GPU, a build or launch error, a parity miss, an
@@ -28,6 +43,7 @@ launches on the card this runs on; every number is this run's.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -48,7 +64,14 @@ TARGET_TRIALS = 7.9        # E[#trials] of the ONDPP kernel (Theorem 2): ~8,
                            # below 8 so the automatic n_spec is 8
 TARGET_SIZE = 10.0         # E[|Y|] of the proposal DPP
 SEED = 0
+CAT_CAPACITY = 1 << 20     # the catalog's rows: 16,384 blocks of 64
+CAT_SLACK = 4096           # rows not live at build (the insert slack)
+CAT_BATCH = 1024           # rows of the update and delete batches
+CAT_SWAP_DELETES = 1024    # further deletes of the swapped-in version
+CAT_ROUNDS = 2             # rounds of the four batches: cold, then warm
+MCMC_K = 8                 # the main path's mean |Y| (7.92), rounded
 DEVICE = "cuda"
+KERNEL_SOURCES = ("tree_sum", "spec_round", "mcmc_score")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM data sheet, fp32 outside tensor cores
 
@@ -87,6 +110,46 @@ def bound(n_bytes: float, n_flop: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_flop = n_flop / FP32_FLOP_PER_S * 1e3
     return max(t_bytes, t_flop), ("bytes" if t_bytes >= t_flop else "operations")
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profile_window(fn) -> dict:
+    """``fn()`` once under ``torch.profiler`` (CPU and CUDA): its wall ms
+    (lengthened by the profiler), the ATen operator calls it made (nested
+    calls included), the device's kernel ms and launch count in the
+    window, and the five kernels and host operators that take the most
+    time."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    kernels = [e for e in avgs if _device_us(e) > 0 and e.cpu_time_total == 0]
+    host = [e for e in avgs if e.self_cpu_time_total > 0]
+    return {
+        "wall_ms": wall * 1e3,
+        "aten_calls": sum(e.count for e in avgs if e.key.startswith("aten::")),
+        "device_ms": sum(_device_us(e) for e in kernels) / 1e3,
+        "kernel_launches": sum(e.count for e in kernels),
+        "top_kernels_ms": [[e.key[:60], _device_us(e) / 1e3, e.count]
+                           for e in sorted(kernels, key=_device_us,
+                                           reverse=True)[:5]],
+        "top_host_ops_ms": [[e.key[:60], e.self_cpu_time_total / 1e3, e.count]
+                            for e in sorted(host, reverse=True,
+                                            key=lambda e: e.self_cpu_time_total
+                                            )[:5]]}
 
 
 # --------------------------------------------------------------- the kernel
@@ -137,12 +200,33 @@ def valid_result(res, m: int, max_trials: int) -> bool:
     return bool(subset_ok and budget_ok)
 
 
+# ------------------------------------------------------------ launch counts
+def _count_owners():
+    """(kernel name, module, attribute) of every kernel's launch count."""
+    from repro_torch.kernels.mcmc_score import ops as mcmc_score_ops
+    from repro_torch.kernels.spec_round import ops as spec_ops
+    from repro_torch.kernels.tree_sum import ops as tree_sum_ops
+
+    return (("descend_score", spec_ops, "launches"),
+            ("block_outer_sums", tree_sum_ops, "launches"),
+            ("gathered_block_grams", tree_sum_ops, "gathered_launches"),
+            ("score_all", mcmc_score_ops, "launches"))
+
+
+def reset_counts() -> None:
+    for _, mod, attr in _count_owners():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(mod, attr) for name, mod, attr in _count_owners()}
+
+
 # ----------------------------------------------------------- the main path
 def run_main_path():
     import torch
     from repro_torch.core import det_ratio_exact, preprocess
     from repro_torch.kernels.spec_round import ops as spec_ops
-    from repro_torch.kernels.tree_sum import ops as tree_sum_ops
     from repro_torch.serve.sampler_engine import SampleRequest, SamplerEngine
 
     t0 = time.perf_counter()
@@ -174,8 +258,7 @@ def run_main_path():
 
     spec_ops.descend_score = recording
     try:
-        spec_ops.launches = 0
-        tree_sum_ops.launches = 0
+        reset_counts()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -186,8 +269,7 @@ def run_main_path():
         cold, cold_out, t_cold = serve(sampler, SEED + 10_000)
         recording_on = True
         eng, out, t_serve = serve(sampler, SEED)
-        launches = {"descend_score": spec_ops.launches,
-                    "block_outer_sums": tree_sum_ops.launches}
+        launches = read_counts()
         peak = torch.cuda.max_memory_allocated()
     finally:
         spec_ops.descend_score = kernel
@@ -205,8 +287,9 @@ def run_main_path():
     check(0.5 * expect <= mean_trials <= 2.0 * expect,
           f"mean trials {mean_trials} outside [0.5, 2] x det_ratio_exact "
           f"{expect}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in ("descend_score", "block_outer_sums"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the main path")
     check(len(captured) == 3, "fewer than 3 descent calls were recorded")
     emit({"main_path": {
         "M": M_ITEMS, "K": K_RANK, "R": sampler.tree.R, "block": BLOCK,
@@ -222,7 +305,7 @@ def run_main_path():
         "mean_subset_size": float(sizes.mean()),
         "tree_gb": sampler.tree.nodes.numel() * 4 / 1e9,
         "peak_device_gb": peak / 1e9, "launches": launches}})
-    return sampler, captured, launches
+    return sampler, captured, launches, (V, B, D)
 
 
 # ------------------------------------------------------------- the kernels
@@ -344,6 +427,372 @@ def check_descend_score(sampler, captured, launches):
             "shape": {"N": n, "R": r, "block": block, "depth": depth}}
 
 
+# ------------------------------------------------------- the dynamic catalog
+def run_catalog(factors):
+    """A Catalog from the main path's factors (capacity 2^20 rows, all but
+    4,096 of them live, staleness 1), four timed mutation batches, the
+    maintained tree against a full rebuild, and an 8-slot engine with a
+    catalog swap after its first tick -> one ``{"catalog": ...}`` line."""
+    import torch
+    from repro_torch.core.dynamic import dual_rows
+    from repro_torch.core.tree import construct_tree
+    from repro_torch.kernels.tree_sum import ops as tree_sum_ops
+    from repro_torch.serve.catalog import Catalog
+    from repro_torch.serve.sampler_engine import SampleRequest, SamplerEngine
+
+    V, B, D = factors
+    m0 = CAT_CAPACITY - CAT_SLACK
+    pool_v, pool_b = V[m0:], B[m0:]          # rows of items not yet listed
+    rng = np.random.default_rng(SEED + 1)
+    # the update batch's blocks and rows, recorded for the kernel phase
+    kernel = tree_sum_ops.gathered_block_grams
+    captured = []
+
+    def recording(W, blks, block):
+        if not captured:
+            captured.append((W, blks.clone(), block))
+        return kernel(W, blks, block)
+
+    def timed(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    cat, build_ms = timed(Catalog, V[:m0], B[:m0], D, block=BLOCK,
+                          capacity=CAT_CAPACITY, staleness=1, device=DEVICE)
+    check(cat.capacity == CAT_CAPACITY and cat.m == m0,
+          f"catalog capacity {cat.capacity}, live {cat.m}")
+    n_ins = CAT_BATCH * 2
+    rounds = []
+    for rnd in range(CAT_ROUNDS):
+        ms = {}
+        _, ms["insert"] = timed(cat.insert_items,
+                                pool_v[rnd * n_ins:(rnd + 1) * n_ins],
+                                pool_b[rnd * n_ins:(rnd + 1) * n_ins])
+        check(cat.capacity == CAT_CAPACITY, "an insert batch grew the catalog")
+        upd = rng.choice(cat.alive_ids(), size=CAT_BATCH, replace=False)
+        src = rng.choice(m0, size=CAT_BATCH, replace=False)   # new factors
+        tree_sum_ops.gathered_block_grams = recording
+        try:
+            _, ms["update"] = timed(cat.update_items, upd, V[src], B[src])
+        finally:
+            tree_sum_ops.gathered_block_grams = kernel
+        gone = rng.choice(cat.alive_ids(), size=CAT_BATCH, replace=False)
+        _, ms["delete"] = timed(cat.delete_items, gone)
+        check(cat.state().stale, "a delete batch did not defer the snapshot")
+        _, ms["refresh"] = timed(cat.refresh)
+        rounds.append(ms)
+    batch_ms = {k: [r[k] for r in rounds] for k in rounds[0]}
+    # where an update batch's time goes, from one more batch under the
+    # profiler
+    upd = rng.choice(cat.alive_ids(), size=CAT_BATCH, replace=False)
+    src = rng.choice(m0, size=CAT_BATCH, replace=False)
+    update_profile = profile_window(
+        lambda: cat.update_items(upd, V[src], B[src]))
+    mutate_launches = read_counts()
+
+    # the maintained live tree against a full rebuild through block_outer_sums
+    live = cat._live_prop.tree
+    a = dual_rows(cat._sp)
+    rebuilt = construct_tree(torch.zeros(a.shape[1], device=a.device), a,
+                             block=BLOCK)
+    tree_equal = (live.depth == rebuilt.depth and torch.equal(live.W, rebuilt.W)
+                  and all(torch.equal(live.level(lvl), rebuilt.level(lvl))
+                          for lvl in range(live.depth + 1)))
+    check(tree_equal, "the maintained catalog tree differs from a rebuild")
+    del a, rebuilt
+    torch.cuda.empty_cache()
+    # what one copy-on-write costs: the node stack, the dual rows and Z
+    cow_ms = cuda_ms(lambda: (live.nodes.clone(), live.W.clone(),
+                              cat._sp.Z.clone()), reps=3, warmup=1)
+
+    def serve(st, first_seed, swap=None):
+        eng = SamplerEngine(st, n_slots=N_SLOTS)
+        for rid in range(N_REQUESTS):
+            eng.submit(SampleRequest(rid=rid, seed=first_seed + rid))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if swap is not None:
+            eng.step()
+            torch.cuda.synchronize()
+            t_first = time.perf_counter() - t0
+            new_st = swap()                       # a mutation, not serving
+            t0 = time.perf_counter()
+            eng.swap_catalog(new_st)
+        out = eng.run()
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0 + (t_first if swap is not None else 0.0)
+        return eng, out, t
+
+    before = cat.state()
+    alive_before = cat._alive.copy()
+    pre_swap = set(range(N_SLOTS))                # admitted at the first tick
+    swap_deleted = rng.choice(cat.alive_ids(), size=CAT_SWAP_DELETES,
+                              replace=False)
+
+    def swap():
+        cat.delete_items(swap_deleted)
+        return cat.state()
+
+    serve(before, SEED + 20_000)                  # cold: other seeds
+    reset_counts()
+    eng, out, t_serve = serve(before, SEED, swap=swap)
+    serve_launches = read_counts()
+    after = cat.state()
+    check(after.stale and after.version == before.version + 1,
+          "the swapped-in version is not the stale delete version")
+    _, never, _ = serve(before, SEED)
+    peak = torch.cuda.max_memory_allocated()
+
+    check(sorted(out) == list(range(N_REQUESTS)),
+          f"catalog engine returned {len(out)} of {N_REQUESTS} requests")
+    bad = [rid for rid, r in out.items()
+           if not valid_result(r, CAT_CAPACITY, SampleRequest(rid=0).max_trials)]
+    check(not bad, f"invalid catalog results for rids {bad[:10]}")
+    differ = [rid for rid in pre_swap
+              if not (np.array_equal(out[rid].items, never[rid].items)
+                      and np.array_equal(out[rid].mask, never[rid].mask)
+                      and out[rid].trials == never[rid].trials)]
+    check(not differ, f"pre-swap requests {differ} differ from an engine "
+                      f"that never swapped")
+    alive_after = cat._alive
+    hits = [rid for rid, r in out.items()
+            if not (alive_before if rid in pre_swap
+                    else alive_after)[r.items[r.mask]].all()]
+    check(not hits, f"requests {hits[:10]} drew an item not live in their "
+                    f"catalog version")
+    post = [r.trials for rid, r in out.items() if rid not in pre_swap]
+    mean_trials = float(np.mean(post))
+    expect = after.expected_trials()
+    check(0.5 * expect <= mean_trials <= 2.0 * expect,
+          f"post-swap mean trials {mean_trials} outside [0.5, 2] x "
+          f"expected_trials_dynamic {expect}")
+    launches = {k: mutate_launches[k] + serve_launches[k]
+                for k in mutate_launches}
+    for name in ("block_outer_sums", "gathered_block_grams", "descend_score"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the catalog path")
+    emit({"catalog": {
+        "capacity": CAT_CAPACITY, "live_items": m0, "R": live.R,
+        "block": BLOCK, "staleness": 1, "build_ms": build_ms,
+        "batch_rows": {"insert": n_ins, "update": CAT_BATCH,
+                       "delete": CAT_BATCH, "refresh": 0},
+        "batch_ms": batch_ms, "copy_on_write_ms": cow_ms,
+        "copy_on_write_share": {k: [cow_ms / t for t in v]
+                                for k, v in batch_ms.items() if k != "refresh"},
+        "update_profile": update_profile,
+        "tree_equal_to_rebuild": tree_equal,
+        "n_slots": N_SLOTS, "n_spec": eng.n_spec, "requests": N_REQUESTS,
+        "swap_deletes": CAT_SWAP_DELETES, "ticks": eng.ticks,
+        "serve_s": t_serve, "requests_per_s": N_REQUESTS / t_serve,
+        "post_swap_mean_trials": mean_trials,
+        "expected_trials_dynamic": expect,
+        "pre_swap_equal_to_never_swapped": True,
+        "peak_device_gb": peak / 1e9, "launches": launches}})
+    del eng, out, never, before, after, live
+    return cat, captured, launches
+
+
+def check_gathered_block_grams(captured, launches):
+    import torch
+    from repro_torch.kernels.tree_sum import ops, ref
+
+    W, blks, block = captured[0]
+    m, r = W.shape
+    nb = blks.shape[0]
+    got = ops.gathered_block_grams(W, blks, block)
+    want = ref.gathered_block_grams_ref(W, blks, block)
+    full = ops.block_outer_sums(W, block)         # every block of the same W
+    torch.cuda.synchronize()
+    equal_full = bool(torch.equal(got, full[blks]))
+    del full
+    err = (got - want).abs()
+    tol = 1e-5 * float(want.abs().max())
+    mismatches = int((err > tol).sum())
+    ms = cuda_ms(lambda: ops.gathered_block_grams(W, blks, block), reps=20)
+    plain_ms = cuda_ms(lambda: ref.gathered_block_grams_ref(W, blks, block),
+                       reps=10)
+    row_idx = (blks[:, None] * block
+               + torch.arange(block, device=W.device)).reshape(-1)
+
+    def library():
+        wb = W.index_select(0, row_idx).view(nb, block, r)
+        return torch.bmm(wb.transpose(1, 2), wb)
+
+    library_ms = cuda_ms(library, reps=10)
+    bms, by = bound(nb * (block * r + r * r) * 4.0,
+                    1.0 * nb * block * r * (r + 1))
+    return {"name": "gathered_block_grams", "route": "cuda",
+            "source": "src/repro_torch/csrc/tree_sum.cu",
+            "replaces": "src/repro/kernels/tree_sum/tree_sum.py:54",
+            "launches": launches, "max_abs_err": float(err.max()),
+            "tolerance": tol, "mismatches": mismatches,
+            "bitwise_equal_to_plain": bool(torch.equal(got, want)),
+            "bitwise_equal_to_block_outer_sums": equal_full,
+            "ok": equal_full and mismatches == 0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms,
+            "library": "index_select of the rows, then torch.bmm",
+            "shape": {"blocks": nb,
+                      "distinct_blocks": int(torch.unique(blks).shape[0]),
+                      "block": block, "R": r, "W_rows": m}}
+
+
+# -------------------------------------------------------------------- MCMC
+def run_mcmc(sp):
+    """The fixed-size MCMC backend on the main path's spectral state
+    (M = 2^20, R = 200), k = MCMC_K, 8 slots, default burn-in and thin ->
+    one ``{"mcmc": ...}`` line."""
+    import torch
+    from repro_torch.core import mcmc as mcmc_core
+    from repro_torch.kernels.mcmc_score import ops as score_ops
+    from repro_torch.serve.sampler_engine import SampleRequest, SamplerEngine
+
+    run_chains = mcmc_core.run_chains
+    score_all = score_ops.score_all
+    accepts = []
+    captured = []
+
+    def recording_chains(*a, **kw):
+        out = run_chains(*a, **kw)
+        accepts.append(out[3].float().mean())
+        return out
+
+    def recording_scores(Z, A):
+        if len(captured) < MCMC_K:
+            captured.append(A.clone())
+        return score_all(Z, A)
+
+    def serve(first_seed, n):
+        eng = SamplerEngine(sp, backend="mcmc", mcmc_k=MCMC_K,
+                            n_slots=N_SLOTS)
+        for rid in range(n):
+            eng.submit(SampleRequest(rid=rid, seed=first_seed + rid))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.run()
+        torch.cuda.synchronize()
+        return eng, out, time.perf_counter() - t0
+
+    serve(SEED + 30_000, N_SLOTS)                 # cold: other seeds
+    mcmc_core.run_chains = recording_chains
+    score_ops.score_all = recording_scores
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        eng, out, t_serve = serve(SEED, N_REQUESTS)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        mcmc_core.run_chains = run_chains
+        score_ops.score_all = score_all
+
+    m = sp.Z.shape[0]
+    x = sp.x_matrix().double()
+    bad = []
+    for rid, r in out.items():
+        y = r.items[r.mask].astype(np.int64)
+        ok = (r.accepted and len(y) == MCMC_K and len(set(y.tolist())) == MCMC_K
+              and bool(np.all((y >= 0) & (y < m))))
+        if ok:
+            zy = sp.Z[torch.as_tensor(y, device=sp.Z.device)].double()
+            ok = float(torch.linalg.det(zy @ x @ zy.T)) > 0
+        if not ok:
+            bad.append(rid)
+    check(sorted(out) == list(range(N_REQUESTS)),
+          f"MCMC engine returned {len(out)} of {N_REQUESTS} requests")
+    check(not bad, f"invalid MCMC results for rids {bad[:10]}")
+    check(launches["score_all"] > 0, "kernel score_all was not launched on "
+                                     "the MCMC path")
+    keys = torch.from_numpy(eng.slot_key.astype(np.int64)).to(sp.Z.device)
+    tick_profile = profile_window(lambda: run_chains(
+        sp, keys, eng._states, n_steps=eng.mcmc_steps_per_tick, fixed=True,
+        p_swap=eng.mcmc_p_swap, refresh_every=eng.mcmc_refresh_every))
+    # the refresh's batched inverse (MAGMA getrf/getri through inv_ex) on
+    # the engine's chains, alone: wall ms a call, then one profiled call
+    ly = mcmc_core._padded_l(sp.Z, sp.x_matrix(), eng._states.items,
+                             eng._states.mask)
+    mcmc_core._inv(ly)
+    inv_ms = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mcmc_core._inv(ly)
+        torch.cuda.synchronize()
+        inv_ms.append((time.perf_counter() - t0) * 1e3)
+    inv_profile = profile_window(lambda: mcmc_core._inv(ly))
+    greedy_ms = []
+    for seed in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._init_chain_state(SEED + 40_000 + seed)
+        torch.cuda.synchronize()
+        greedy_ms.append((time.perf_counter() - t0) * 1e3)
+    emit({"mcmc": {
+        "M": m, "R": sp.Z.shape[1], "k": MCMC_K, "n_slots": N_SLOTS,
+        "burn_in": eng.mcmc_burn_in, "thin": eng.mcmc_thin,
+        "steps_per_tick": eng.mcmc_steps_per_tick, "requests": N_REQUESTS,
+        "ticks": eng.ticks, "serve_s": t_serve,
+        "requests_per_s": N_REQUESTS / t_serve,
+        "ms_per_tick": t_serve / eng.ticks * 1e3,
+        "ms_per_greedy_start": greedy_ms,
+        "mean_acceptance": float(torch.stack(accepts).mean()),
+        "tick_profile": tick_profile,
+        "refresh_every": eng.mcmc_refresh_every,
+        "inv_shape": list(ly.shape), "inv_ms": inv_ms,
+        "inv_profile": inv_profile,
+        "peak_device_gb": peak / 1e9, "launches": launches}})
+    return captured, launches
+
+
+def check_score_all(sp, captured, launches):
+    import torch
+    from repro_torch.kernels.mcmc_score import ops, ref
+
+    Z = sp.Z
+    m, r = Z.shape
+
+    def one(A, reps):
+        c = A.shape[0]
+        got = ops.score_all(Z, A)
+        want = ref.score_all_ref(Z, A)
+        torch.cuda.synchronize()
+        # per chain: the greedy rounds' scores differ in scale by orders of
+        # magnitude, so each chain's error is held to its own largest score
+        scale = want.abs().amax(dim=1)
+        err = (got - want).abs().amax(dim=1)
+        ms = cuda_ms(lambda: ops.score_all(Z, A), reps=reps)
+        plain_ms = cuda_ms(lambda: ref.score_all_ref(Z, A), reps=reps)
+        library_ms = cuda_ms(lambda: ((Z @ A) * Z).sum(-1), reps=reps)
+        # a quadratic form sees only A's symmetric part: R^2 to symmetrize
+        # each A_c, then R(R+1)/2 multiply-adds a row over i <= j
+        bms, by = bound((m * r + c * r * r + c * m) * 4.0,
+                        1.0 * c * m * r * (r + 1) + 1.0 * c * r * r)
+        return {"C": c, "max_abs_err": float(err.max()),
+                "max_err_over_chain_max_score": float((err / scale).max()),
+                "max_abs_score_by_chain": scale.tolist(),
+                "ok": bool((err <= 1e-4 * scale).all()), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                "library_ms": library_ms}
+
+    c1 = one(captured[-1][:1].contiguous(), reps=10)
+    c8 = one(torch.cat(captured[:8]).contiguous(), reps=3)
+    return {"name": "score_all", "route": "cuda",
+            "source": "src/repro_torch/csrc/mcmc_score.cu",
+            "replaces": "src/repro/kernels/mcmc_score/mcmc_score.py:32",
+            "launches": launches, "max_abs_err": c1["max_abs_err"],
+            "tolerance": "each chain within 1e-4 of its largest |score|",
+            "ok": c1["ok"] and c8["ok"], "ms": c1["ms"],
+            "plain_ms": c1["plain_ms"], "bound_ms": c1["bound_ms"],
+            "bound_by": c1["bound_by"], "library_ms": c1["library_ms"],
+            "library": "((Z @ A_c) * Z).sum(-1), two calls",
+            "shape": {"C": 1, "M": m, "R": r}, "at_C8": c8}
+
+
 # --------------------------------------------------------------------- main
 def main() -> int:
     try:
@@ -375,16 +824,35 @@ def main() -> int:
     print(f"nvidia-smi: {smi.stdout.strip()}", flush=True)
 
     t0 = time.perf_counter()
-    _build.build(["tree_sum", "spec_round"])
+    _build.build(KERNEL_SOURCES)
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-    for kname in ("tree_sum", "spec_round"):
+    for kname in KERNEL_SOURCES:
         for line in _build.build_log(kname).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {kname}: {line.strip()}", flush=True)
 
-    sampler, captured, launches = run_main_path()
-    entries = [check_block_outer_sums(sampler, launches),
-               check_descend_score(sampler, captured, launches)]
+    by_path = {}
+    sampler, captured, by_path["main_path"], factors = run_main_path()
+    entries = [check_block_outer_sums(sampler, by_path["main_path"]),
+               check_descend_score(sampler, captured, by_path["main_path"])]
+    sp = sampler.sp                  # the MCMC phase's state; the tree goes
+    del sampler, captured
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cat, cat_captured, by_path["catalog"] = run_catalog(factors)
+    entries.append(check_gathered_block_grams(
+        cat_captured, by_path["catalog"]["gathered_block_grams"]))
+    del cat, cat_captured, factors
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mcmc_captured, by_path["mcmc"] = run_mcmc(sp)
+    entries.append(check_score_all(sp, mcmc_captured,
+                                   by_path["mcmc"]["score_all"]))
+    for e in entries:
+        e["launches_by_path"] = {p: c[e["name"]] for p, c in by_path.items()}
+        e["launches"] = sum(e["launches_by_path"].values())
     emit({"kernels": entries})
     bad = [e["name"] for e in entries if not e["ok"]]
     check(not bad, f"kernel parity failed: {bad}")

@@ -1,5 +1,30 @@
-"""Core NDPP math of the port: types, Youla, the proposal tree and the
-speculative rejection sampler."""
+"""Core NDPP math of the port: types, Youla, the proposal tree, the
+speculative rejection sampler, the dynamic-catalog proposal and the MCMC
+chains."""
+from .dynamic import (  # noqa: F401
+    DualProposal,
+    auto_n_spec_dynamic,
+    build_dual_proposal,
+    dual_eigens,
+    dual_rows,
+    expected_trials_dynamic,
+    sample_dynamic_many,
+    update_proposal,
+)
+from .mcmc import (  # noqa: F401
+    MCMCSample,
+    MCMCState,
+    add_ratio,
+    init_empty,
+    init_greedy,
+    reanchor,
+    remove_ratio,
+    run_chains,
+    sample_mcmc,
+    score_matrix,
+    swap_ratio,
+    swap_score_matrix,
+)
 from .rejection import (  # noqa: F401
     NDPPSampler,
     RejectionSample,
@@ -14,9 +39,11 @@ from .rejection import (  # noqa: F401
 from .tree import (  # noqa: F401
     SampleTree,
     construct_tree,
+    dual_q0,
     proposal_eigens,
     sample_elementary_batch,
     sample_proposal_dpp_batch,
+    update_rows,
 )
 from .types import (  # noqa: F401
     NDPPParams,
@@ -27,4 +54,9 @@ from .types import (  # noqa: F401
     dense_l_spectral,
     x_from_sigma,
 )
-from .youla import spectral_from_params, youla_decompose_np  # noqa: F401
+from .youla import (  # noqa: F401
+    spectral_from_params,
+    spectral_from_transform,
+    youla_decompose_np,
+    youla_transform_np,
+)

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -79,13 +79,19 @@ def _masked_rows(Z: torch.Tensor, items: torch.Tensor,
 
 
 def _log_det_ratio_rows(sp: SpectralNDPP, zy: torch.Tensor,
-                        mask: torch.Tensor
+                        mask: torch.Tensor,
+                        live_rows: Optional[torch.Tensor] = None,
+                        live_x: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """log det(L_Y) - log det(Lhat_Y) and sign det(L_Y) from gathered
     (..., k_pad, 2K) subset rows with padding rows zeroed; padding rows get
-    a unit diagonal so they contribute a factor of exactly 1."""
+    a unit diagonal so they contribute a factor of exactly 1.
+    ``live_rows``/``live_x``: pre-gathered numerator overrides (see
+    ``log_det_ratio``)."""
+    x = sp.x_matrix() if live_x is None else live_x
+    num = zy if live_rows is None else live_rows
     pad_eye = torch.diag_embed((~mask).to(zy.dtype))
-    l_y = zy @ sp.x_matrix() @ zy.transpose(-1, -2) + pad_eye
+    l_y = num @ x @ num.transpose(-1, -2) + pad_eye
     lhat_y = (zy * sp.x_diag_hat()) @ zy.transpose(-1, -2) + pad_eye
     sign_l, logdet_l = torch.linalg.slogdet(l_y)
     sign_h, logdet_h = torch.linalg.slogdet(lhat_y)
@@ -94,11 +100,23 @@ def _log_det_ratio_rows(sp: SpectralNDPP, zy: torch.Tensor,
                         torch.full_like(logdet_l, -math.inf)), sign_l)
 
 
-def log_det_ratio(sp: SpectralNDPP, items: torch.Tensor, mask: torch.Tensor
+def log_det_ratio(sp: SpectralNDPP, items: torch.Tensor, mask: torch.Tensor,
+                  live_z: Optional[torch.Tensor] = None,
+                  live_x: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(log det(L_Y) - log det(Lhat_Y), sign of det(L_Y)) for padded
-    subsets: items/mask (..., k_pad); leading dims are a batch."""
-    return _log_det_ratio_rows(sp, _masked_rows(sp.Z, items, mask), mask)
+    subsets: items/mask (..., k_pad); leading dims are a batch.
+
+    ``live_z`` / ``live_x`` override the numerator only: the acceptance
+    test then scores the live kernel ``live_z X_live live_z^T`` while the
+    denominator stays the proposal Lhat that ``sp`` sampled from — the
+    stale-proposal acceptance of the dynamic catalog.  A live row zeroed by
+    a delete makes sign(det L_Y) = 0, so deleted items are always rejected.
+    """
+    zy = _masked_rows(sp.Z, items, mask)
+    live_rows = None if live_z is None else _masked_rows(live_z, items, mask)
+    return _log_det_ratio_rows(sp, zy, mask, live_rows=live_rows,
+                               live_x=live_x)
 
 
 def log_det_ratio_batch(sp: SpectralNDPP, items: torch.Tensor,
@@ -184,8 +202,9 @@ def sample_batched_many(
             "yet (ROADMAP, Queue 1: multi-GPU sharding)")
     if observer is not None:
         raise NotImplementedError(
-            "observer= needs the observed drive_rounds driver, which the port "
-            "does not have yet (ROADMAP, Queue 1: observability)")
+            "observer= needs the reference's observed drive_rounds driver, "
+            "which the port does not have yet (ROADMAP, Queue 1: "
+            "observability)")
     dev = sampler.device
     if n_spec is None:
         n_spec = auto_n_spec(sampler, max_spec)
@@ -196,16 +215,21 @@ def sample_batched_many(
         req_keys = trandom.split(key, n)
     else:
         req_keys = key
-    return _drive_rounds_fused(sampler, req_keys, n_spec=n_spec,
-                               max_trials=max_trials)
+    return _drive_rounds_fused(
+        lambda keys: _spec_round_impl(sampler, keys), req_keys,
+        sampler.tree.R, n_spec=n_spec, max_trials=max_trials)
 
 
-def _drive_rounds_fused(sampler: NDPPSampler, req_keys: torch.Tensor, *,
-                        n_spec: int, max_trials: int) -> RejectionSample:
-    """The speculative accept/reject loop (the reference's one-jit driver).
+def _drive_rounds_fused(round_fn: Callable, req_keys: torch.Tensor, r: int,
+                        *, n_spec: int, max_trials: int) -> RejectionSample:
+    """The speculative accept/reject loop (the reference's one-jit driver),
+    shared with the dynamic-catalog sampler
+    (``core.dynamic.sample_dynamic_many``).
 
-    Round r covers proposal offsets ``[r*n_spec, (r+1)*n_spec)`` of every
-    request, keyed ``fold_in(req_keys[i], offset)``; lanes past
+    ``round_fn(keys)`` scores one proposal per (P, 2) key and returns
+    (items, mask, accept) with up to ``r`` items each.  Round t covers
+    proposal offsets ``[t*n_spec, (t+1)*n_spec)`` of every request, keyed
+    ``fold_in(req_keys[i], offset)``; lanes past
     ``max_trials`` are masked, never reshaped away, and retired requests
     ride along as masked lanes, so every round has the same width and a
     later port can capture it as a CUDA graph.  The host reads one flag
@@ -214,7 +238,6 @@ def _drive_rounds_fused(sampler: NDPPSampler, req_keys: torch.Tensor, *,
     ``trials=max_trials``.
     """
     n = req_keys.shape[0]
-    r = sampler.tree.R
     dev = req_keys.device
     offsets = torch.arange(n_spec, dtype=torch.int64, device=dev)
     lane = torch.arange(n_spec, device=dev)
@@ -226,7 +249,7 @@ def _drive_rounds_fused(sampler: NDPPSampler, req_keys: torch.Tensor, *,
     while spent < max_trials:
         starts = torch.full((n,), spent, dtype=torch.int64, device=dev)
         keys = _fanout_traced(req_keys, starts, offsets)
-        it, mk, ac = _spec_round_impl(sampler, keys)
+        it, mk, ac = round_fn(keys)
         it = it.reshape(n, n_spec, r)
         mk = mk.reshape(n, n_spec, r)
         usable = min(n_spec, max_trials - spent)

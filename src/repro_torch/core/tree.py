@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -106,8 +106,42 @@ def construct_tree(lam: torch.Tensor, W: torch.Tensor,
     return tree
 
 
+def update_rows(tree: SampleTree, idx: torch.Tensor, rows: torch.Tensor,
+                lam: Optional[torch.Tensor] = None) -> SampleTree:
+    """Batched row update ``W[idx] <- rows`` in O(B (block + log M) R^2).
+
+    ``idx``: (B,) unique row indices (several hitting one block are fine;
+    a repeated row index is not), ``rows``: (B, R).  The touched leaf
+    blocks are recomputed by the ``gathered_block_grams`` kernel and their
+    root paths resummed (``kernels.tree_sum.ops.tree_update``), so the
+    result is bit-equal to ``construct_tree`` on the updated rows.  The
+    update is copy-on-write: ``tree`` is left as it was, so a snapshot that
+    holds it stays valid.  ``lam`` optionally replaces the eigenvalues.
+    """
+    nodes, w_new = tree_sum_ops.tree_update(tree.nodes, tree.W, idx, rows,
+                                            tree.block)
+    return SampleTree(W=w_new, lam=tree.lam if lam is None else lam,
+                      nodes=nodes, block=tree.block, M=tree.M)
+
+
+def dual_q0(u: torch.Tensor, lam: torch.Tensor, e_masks: torch.Tensor,
+            eps: float = 1e-10) -> torch.Tensor:
+    """Elementary-DPP projectors for a dual tree (rows a_j = z_j x̂_j^1/2).
+
+    With (lam, u) the eigenpairs of the R x R dual Gram C = A^T A (the tree
+    root), the elementary DPP of eigenvector set E has marginal kernel
+    A Q0 A^T with Q0 = U_E diag(1/lam_E) U_E^T.  e_masks: (N, R) -> (N, R, R).
+    Null directions (lam <= eps) are never selected and contribute zero.
+    """
+    inv = torch.where(lam > eps, 1.0 / lam.clamp_min(eps),
+                      torch.zeros_like(lam))
+    w = e_masks.to(u.dtype) * inv[None, :]
+    return torch.einsum("ik,nk,jk->nij", u, w, u)
+
+
 def sample_elementary_batch(tree: SampleTree, e_masks: torch.Tensor,
-                            keys: torch.Tensor
+                            keys: torch.Tensor,
+                            q0: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """N elementary-DPP draws through the tree, one batched step per item.
 
@@ -118,12 +152,17 @@ def sample_elementary_batch(tree: SampleTree, e_masks: torch.Tensor,
     ``kk[0]`` and the leaf categorical from ``kk[1]``.  The trip count is
     the batch's largest |E| (one host read); the noise of all steps is
     drawn up front, since it does not depend on the draws.
+
+    ``q0`` overrides the (N, R, R) initial projectors: the dual tree of
+    ``core.dynamic`` passes ``dual_q0(u, lam, e_masks)``; the default is
+    the orthonormal-basis projector diag(e_mask).
     """
     n, r = e_masks.shape
     dev = e_masks.device
     n_e = e_masks.sum(dim=1)                                      # (N,)
     n_steps = int(n_e.max()) if n else 0
-    q = torch.diag_embed(e_masks.to(tree.W.dtype))                # (N, R, R)
+    q = (torch.diag_embed(e_masks.to(tree.W.dtype)) if q0 is None
+         else q0.contiguous())                                    # (N, R, R)
     items = torch.full((n, r), -1, dtype=torch.int64, device=dev)
     if n_steps == 0:
         return items, items >= 0
@@ -148,12 +187,17 @@ def sample_elementary_batch(tree: SampleTree, e_masks: torch.Tensor,
     return items, items >= 0
 
 
-def sample_proposal_dpp_batch(tree: SampleTree, keys: torch.Tensor
+def sample_proposal_dpp_batch(tree: SampleTree, keys: torch.Tensor,
+                              dual_u: Optional[torch.Tensor] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """N draws Y ~ DPP(Lhat), one per key in ``keys`` (N, 2): eigenvector
-    coins with probability lam/(lam+1), then one batched tree descent."""
+    coins with probability lam/(lam+1), then one batched tree descent.
+    ``dual_u``: (R, R) eigenvectors of the dual Gram when ``tree`` holds
+    dual rows (``core.dynamic``); the coins still use ``tree.lam`` and the
+    projectors come from ``dual_q0``."""
     ks = trandom.split(keys)                                      # (N, 2, 2)
     probs = tree.lam / (tree.lam + 1.0)
     u_e = trandom.uniform(ks[:, 0], probs.shape)
     e_masks = u_e < probs[None, :]
-    return sample_elementary_batch(tree, e_masks, ks[:, 1])
+    q0 = None if dual_u is None else dual_q0(dual_u, tree.lam, e_masks)
+    return sample_elementary_batch(tree, e_masks, ks[:, 1], q0=q0)

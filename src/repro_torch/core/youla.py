@@ -78,3 +78,53 @@ def spectral_from_params(V, B, D, *, device: DeviceLike = None
     z = torch.cat([v, torch.as_tensor(y, dtype=torch.float32).to(dev)], 1)
     return SpectralNDPP(Z=z, sigma=torch.as_tensor(sig,
                                                    dtype=torch.float32).to(dev))
+
+
+def youla_transform_np(B, D) -> Tuple[np.ndarray, np.ndarray]:
+    """(sigma, T): the Youla change of basis as a K x K right transform,
+    ``Y = B @ T``, in host float64 (the reference's arithmetic).
+
+    Youla gives ``B (D - D^T) B^T = (B T) S_skew (B T)^T``; with B of full
+    column rank that forces ``T S_skew T^T = D - D^T``, which holds for any
+    later B.  A dynamic catalog therefore freezes (sigma, T) once and embeds
+    a new or updated item as ``z_j = [v_j, b_j @ T]``: ``Z X Z^T`` stays an
+    exact factorization of the live kernel under row inserts, updates and
+    deletes as long as D is unchanged.
+    """
+    B = _np64(B)
+    D = _np64(D)
+    K = B.shape[1]
+    C = (D - D.T) @ (B.T @ B)
+    eigvals, eigvecs = np.linalg.eig(C)
+    order = np.argsort(-np.imag(eigvals), kind="stable")
+    eigvals, eigvecs = eigvals[order], eigvecs[:, order]
+    half = K // 2
+    sig = np.imag(eigvals[:half]).copy()
+    t = np.zeros((K, K))
+    for j in range(half):
+        if sig[j] <= 1e-12:  # numerically rank-deficient pair
+            sig[j] = 0.0
+            u = np.real(eigvecs[:, j])
+            if np.linalg.norm(B @ u) < 1e-12:
+                u = np.zeros(K)
+                u[j % K] = 1.0
+            t[:, 2 * j] = u / max(np.linalg.norm(B @ u), 1e-30)
+            continue
+        v = eigvecs[:, j]
+        u1 = np.real(v) - np.imag(v)
+        u2 = np.real(v) + np.imag(v)
+        t[:, 2 * j] = u1 / max(np.linalg.norm(B @ u1), 1e-30)
+        t[:, 2 * j + 1] = u2 / max(np.linalg.norm(B @ u2), 1e-30)
+    return sig, t
+
+
+def spectral_from_transform(V, B, T, sigma, *, device: DeviceLike = None
+                            ) -> SpectralNDPP:
+    """Spectral form through a frozen Youla transform: Z = [V, B T], in
+    float32 on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    v = torch.as_tensor(V, dtype=torch.float32).to(dev)
+    b = torch.as_tensor(B, dtype=torch.float32).to(dev)
+    t = torch.as_tensor(T, dtype=torch.float32).to(dev)
+    sig = torch.as_tensor(sigma, dtype=torch.float32).to(dev)
+    return SpectralNDPP(Z=torch.cat([v, b @ t], 1), sigma=sig)

@@ -133,3 +133,30 @@ def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     (first maximum on ties, as ``jnp.argmax``)."""
     g = gumbel(keys, logits.shape[-1:])
     return torch.argmax(g + logits, dim=-1)
+
+
+def randint(keys: torch.Tensor, shape: Shape, minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint`` (int32) per key: (..., 2) -> (..., *shape)
+    int64 values in [minval, maxval).
+
+    The reference's arithmetic, not a plain modulo: the key is split in
+    two, each half draws 32 random bits, and with ``span = maxval - minval``
+    the offset is ``((hi % span) * (2^32 % span) + lo % span) % span`` in
+    wrapping uint32 arithmetic (``2^32 % span`` taken as
+    ``((2^16 % span)^2) % span``, the square wrapping too).
+    ``maxval <= minval`` returns ``minval``.
+    """
+    lo_i32, hi_i32 = -(1 << 31), (1 << 31) - 1
+    if not (lo_i32 <= minval <= hi_i32 and lo_i32 <= maxval <= hi_i32):
+        raise OverflowError(f"randint bounds [{minval}, {maxval}) must fit "
+                            f"int32, as the reference's default dtype")
+    k = split(keys)
+    higher = random_bits(k[..., 0, :], shape)
+    lower = random_bits(k[..., 1, :], shape)
+    span = (maxval - minval) & _MASK if maxval > minval else 1
+    mult = ((((1 << 16) % span) ** 2) & _MASK) % span
+    offset = (((higher % span) * mult) & _MASK) + lower % span
+    offset = (offset & _MASK) % span
+    # int32 addition, wrapping as the reference's does
+    return ((minval + offset + (1 << 31)) & _MASK) - (1 << 31)

@@ -1,11 +1,18 @@
-"""Shared helpers of the port's tests: carry a reference sampler across to
+"""Shared helpers of the port's tests: carry reference state (a sampler, a
+catalog version, a spectral form, a pool of MCMC chains) across to
 ``repro_torch`` as numpy, and pin the key layout of the golden files."""
 import contextlib
 
 import jax
 import numpy as np
+import torch
 
-from repro_torch.convert import sampler_from_numpy
+from repro_torch.convert import (
+    catalog_state_from_numpy,
+    mcmc_states_from_numpy,
+    sampler_from_numpy,
+)
+from repro_torch.core.types import SpectralNDPP
 
 
 def port_sampler(sampler, device="cpu"):
@@ -24,3 +31,28 @@ def golden_key_layout():
     test files in the same worker keep JAX's default."""
     with jax.threefry_partitionable(False):
         yield
+
+
+def port_catalog_state(st, device="cpu"):
+    """The reference ``CatalogState``'s arrays as the port's, bit for bit."""
+    prop = st.proposal
+    t = prop.tree
+    return catalog_state_from_numpy(
+        st.version, st.proposal_version, st.m, np.asarray(st.sp.Z),
+        np.asarray(st.sp.sigma), np.asarray(prop.sp.Z),
+        np.asarray(prop.sp.sigma), np.asarray(t.lam), np.asarray(prop.u),
+        np.asarray(t.W), [np.asarray(lv) for lv in t.levels], t.block,
+        device=device)
+
+
+def port_spectral(sp, device="cpu"):
+    """The reference ``SpectralNDPP`` as the port's, bit for bit."""
+    return SpectralNDPP(Z=torch.as_tensor(np.array(sp.Z)).to(device),
+                        sigma=torch.as_tensor(np.array(sp.sigma)).to(device))
+
+
+def port_mcmc_states(states, device="cpu"):
+    """A reference ``MCMCState`` pool (leading chain dim) as the port's."""
+    return mcmc_states_from_numpy(
+        np.asarray(states.items), np.asarray(states.mask),
+        np.asarray(states.minv), np.asarray(states.step), device=device)

@@ -4,8 +4,9 @@ no CPU mode) and run on the H100 with ``pytest -m gpu tests/test_torch_gpu.py``.
 
 Tolerances: the kernels sum in float32 in another order than cuBLAS /
 PyTorch's reductions, so values agree to rtol 1e-5 (Gram) and 1e-4 of the
-largest score (descent); block ids on these well-separated random inputs
-must be equal.
+largest score (descent, all-candidate scores); block ids on these
+well-separated random inputs must be equal.  The gathered Grams share the
+full build's contraction and must be bit-equal to it.
 """
 import dataclasses
 
@@ -18,8 +19,16 @@ from repro_torch.core import SpectralNDPP, preprocess, sample_batched_many
 from repro_torch.core.rejection import NDPPSampler
 from repro_torch.kernels.spec_round import ops as spec_ops
 from repro_torch.kernels.spec_round.ref import descend_score_ref
+from repro_torch.core.dynamic import dual_rows
+from repro_torch.core.tree import construct_tree
+from repro_torch.kernels.mcmc_score import ops as score_ops
+from repro_torch.kernels.mcmc_score.ref import score_all_ref
 from repro_torch.kernels.tree_sum import ops as tree_sum_ops
-from repro_torch.kernels.tree_sum.ref import block_outer_sums_ref
+from repro_torch.kernels.tree_sum.ref import (
+    block_outer_sums_ref,
+    gathered_block_grams_ref,
+)
+from repro_torch.serve.catalog import Catalog
 
 pytestmark = pytest.mark.gpu
 
@@ -111,3 +120,68 @@ def test_card_draws_match_cpu_draws(cuda):
     assert spec_ops.launches > before
     for name in ("items", "mask", "trials", "accepted"):
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("n,block,r", [(5, 4, 8), (9, 5, 33), (7, 13, 130),
+                                       (64, 64, 200)])
+def test_gathered_block_grams_kernel(cuda, n, block, r):
+    rng = np.random.default_rng(n * 10 + r)
+    w = torch.as_tensor(rng.normal(size=(n * block, r)).astype(np.float32),
+                        device=cuda)
+    blks = torch.as_tensor(np.concatenate([rng.integers(0, n, size=2 * n),
+                                           [0, n - 1, 0]]), device=cuda)
+    before = tree_sum_ops.gathered_launches
+    got = tree_sum_ops.gathered_block_grams(w, blks, block)
+    torch.cuda.synchronize()
+    assert tree_sum_ops.gathered_launches == before + 1
+    # the full build's contraction, bit for bit (duplicate ids included)
+    assert torch.equal(got, tree_sum_ops.block_outer_sums(w, block)[blks])
+    want = gathered_block_grams_ref(w, blks, block)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_update_rows_on_card_bit_equal_to_rebuild(cuda):
+    """Catalog mutations on the card keep the maintained tree bit-equal to
+    a card rebuild (the gathered kernel against block_outer_sums)."""
+    rng = np.random.default_rng(5)
+    m, k = 300, 8
+    cat = Catalog(rng.normal(size=(m, k)) * 0.3, rng.normal(size=(m, k)) * 0.3,
+                  rng.normal(size=(k, k)), block=8, capacity=512,
+                  staleness=1, device=cuda)
+    before = tree_sum_ops.gathered_launches
+    cat.insert_items(rng.normal(size=(5, k)) * 0.3,
+                     rng.normal(size=(5, k)) * 0.3)
+    cat.update_items([3, 77, 78], rng.normal(size=(3, k)) * 0.3,
+                     rng.normal(size=(3, k)) * 0.3)
+    cat.delete_items([10, 200, 201])
+    assert tree_sum_ops.gathered_launches == before + 3
+    a = dual_rows(cat._sp)
+    rebuilt = construct_tree(torch.zeros(a.shape[1], device=cuda), a, block=8)
+    live = cat._live_prop.tree
+    assert torch.equal(live.nodes, rebuilt.nodes)
+    assert torch.equal(live.W, rebuilt.W)
+
+
+@pytest.mark.parametrize("c,m,r", [(1, 1, 8), (1, 100, 33), (3, 1000, 130),
+                                   (8, 4097, 200), (2, 64, 512)])
+def test_score_all_kernel(cuda, c, m, r):
+    rng = np.random.default_rng(c * 1000 + m + r)
+    z = torch.as_tensor(rng.normal(size=(m, r)).astype(np.float32),
+                        device=cuda)
+    a = torch.as_tensor(rng.normal(size=(c, r, r)).astype(np.float32),
+                        device=cuda)
+    before = score_ops.launches
+    got = score_ops.score_all(z, a)
+    torch.cuda.synchronize()
+    assert score_ops.launches == before + 1
+    want = score_all_ref(z, a)
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+def test_score_all_refuses_wide_r(cuda):
+    r = score_ops.MAX_R + 1
+    with pytest.raises(ValueError, match="R <="):
+        score_ops.score_all(torch.zeros((4, r), device=cuda),
+                            torch.zeros((1, r, r), device=cuda))
