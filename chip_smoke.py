@@ -29,12 +29,25 @@ kernel against its plain PyTorch version on the card:
    (k = 8, the main path's mean |Y|) from stochastic-greedy starts, 8
    slots, 64 requests, each result 8 distinct items with det(L_Y) > 0
    -> ``{"mcmc": ...}``;
-5. each kernel against its plain version at its path's shapes, on inputs
+5. item-axis sharding at the same width on meshes of S = 1 and S = 2
+   shards (both on the one card, or on two cards where the host has
+   them): 64 rejection requests through ``SamplerEngine(mesh=)`` per S
+   (S = 1 and S = 2 equal per rid, valid, mean trials against
+   det_ratio_exact; how many rids equal the unsharded main path's, and the
+   float64 margin of every descent decision the sharded descent takes
+   otherwise than the ``descend_score`` kernel), the catalog's per-item
+   qualities L_ii through ``bilinear_sharded``, a meshed ``Catalog``
+   through one round of the four mutation batches (its tree, gathered,
+   ``torch.equal`` to a sharded rebuild and to the unsharded catalog's
+   tree; 16 requests equal at S = 1 and 2) and 16 MCMC requests (S = 1
+   and 2 equal) -> one ``{"sharded": ...}`` line;
+6. each kernel against its plain version at its path's shapes, on inputs
    the paths themselves produced (the main path's tree rows and first
    round's projectors and uniforms; the catalog's update batch; the greedy
-   start's score matrices), with times, bounds and launch counts by path
-   -> one ``{"kernels": [...]}`` line;
-6. the last line: ``{"ok": true, "device": {...}}``.
+   start's score matrices; the sharded descent's leaf blocks and
+   projectors; the catalog's rows and X), with times, bounds and launch
+   counts by path -> one ``{"kernels": [...]}`` line;
+7. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero (an exception's traceback, or a FAIL line)
 before the last line: no GPU, a build or launch error, a parity miss, an
@@ -70,10 +83,13 @@ CAT_BATCH = 1024           # rows of the update and delete batches
 CAT_SWAP_DELETES = 1024    # further deletes of the swapped-in version
 CAT_ROUNDS = 2             # rounds of the four batches: cold, then warm
 MCMC_K = 8                 # the main path's mean |Y| (7.92), rounded
+SHARD_COUNTS = (1, 2)      # the sharded phase's meshes
+SHARDED_REQUESTS = 16      # the sharded catalog and MCMC requests
 DEVICE = "cuda"
-KERNEL_SOURCES = ("tree_sum", "spec_round", "mcmc_score")
+KERNEL_SOURCES = ("tree_sum", "spec_round", "mcmc_score", "bilinear")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM data sheet, fp32 outside tensor cores
+BF16_FLOP_PER_S = 989e12   # H100 SXM data sheet, dense bf16 tensor cores
 
 
 class SmokeFailure(RuntimeError):
@@ -106,9 +122,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes: float, n_flop: float):
+def bound(n_bytes: float, n_flop: float, flop_per_s: float = FP32_FLOP_PER_S):
+    """The least time for the work: bytes over HBM's rate or operations
+    over the peak rate of their type, whichever is larger."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_flop = n_flop / FP32_FLOP_PER_S * 1e3
+    t_flop = n_flop / flop_per_s * 1e3
     return max(t_bytes, t_flop), ("bytes" if t_bytes >= t_flop else "operations")
 
 
@@ -203,6 +221,7 @@ def valid_result(res, m: int, max_trials: int) -> bool:
 # ------------------------------------------------------------ launch counts
 def _count_owners():
     """(kernel name, module, attribute) of every kernel's launch count."""
+    from repro_torch.kernels.bilinear import ops as bilinear_ops
     from repro_torch.kernels.mcmc_score import ops as mcmc_score_ops
     from repro_torch.kernels.spec_round import ops as spec_ops
     from repro_torch.kernels.tree_sum import ops as tree_sum_ops
@@ -210,7 +229,9 @@ def _count_owners():
     return (("descend_score", spec_ops, "launches"),
             ("block_outer_sums", tree_sum_ops, "launches"),
             ("gathered_block_grams", tree_sum_ops, "gathered_launches"),
-            ("score_all", mcmc_score_ops, "launches"))
+            ("score_all", mcmc_score_ops, "launches"),
+            ("bilinear_batched", bilinear_ops, "batched_launches"),
+            ("bilinear", bilinear_ops, "launches"))
 
 
 def reset_counts() -> None:
@@ -305,7 +326,7 @@ def run_main_path():
         "mean_subset_size": float(sizes.mean()),
         "tree_gb": sampler.tree.nodes.numel() * 4 / 1e9,
         "peak_device_gb": peak / 1e9, "launches": launches}})
-    return sampler, captured, launches, (V, B, D)
+    return sampler, captured, launches, (V, B, D), out
 
 
 # ------------------------------------------------------------- the kernels
@@ -643,6 +664,26 @@ def check_gathered_block_grams(captured, launches):
 
 
 # -------------------------------------------------------------------- MCMC
+def invalid_mcmc(sp, out) -> list:
+    """Rids whose result is not MCMC_K distinct items in [0, M) with
+    det(L_Y) > 0 (float64)."""
+    import torch
+
+    m = sp.Z.shape[0]
+    x = sp.x_matrix().double()
+    bad = []
+    for rid, r in out.items():
+        y = r.items[r.mask].astype(np.int64)
+        ok = (r.accepted and len(y) == MCMC_K and len(set(y.tolist())) == MCMC_K
+              and bool(np.all((y >= 0) & (y < m))))
+        if ok:
+            zy = sp.Z[torch.as_tensor(y, device=sp.Z.device)].double()
+            ok = float(torch.linalg.det(zy @ x @ zy.T)) > 0
+        if not ok:
+            bad.append(rid)
+    return bad
+
+
 def run_mcmc(sp):
     """The fixed-size MCMC backend on the main path's spectral state
     (M = 2^20, R = 200), k = MCMC_K, 8 slots, default burn-in and thin ->
@@ -692,19 +733,9 @@ def run_mcmc(sp):
         score_ops.score_all = score_all
 
     m = sp.Z.shape[0]
-    x = sp.x_matrix().double()
-    bad = []
-    for rid, r in out.items():
-        y = r.items[r.mask].astype(np.int64)
-        ok = (r.accepted and len(y) == MCMC_K and len(set(y.tolist())) == MCMC_K
-              and bool(np.all((y >= 0) & (y < m))))
-        if ok:
-            zy = sp.Z[torch.as_tensor(y, device=sp.Z.device)].double()
-            ok = float(torch.linalg.det(zy @ x @ zy.T)) > 0
-        if not ok:
-            bad.append(rid)
     check(sorted(out) == list(range(N_REQUESTS)),
           f"MCMC engine returned {len(out)} of {N_REQUESTS} requests")
+    bad = invalid_mcmc(sp, out)
     check(not bad, f"invalid MCMC results for rids {bad[:10]}")
     check(launches["score_all"] > 0, "kernel score_all was not launched on "
                                      "the MCMC path")
@@ -746,7 +777,7 @@ def run_mcmc(sp):
         "inv_shape": list(ly.shape), "inv_ms": inv_ms,
         "inv_profile": inv_profile,
         "peak_device_gb": peak / 1e9, "launches": launches}})
-    return captured, launches
+    return captured, launches, out
 
 
 def check_score_all(sp, captured, launches):
@@ -793,6 +824,409 @@ def check_score_all(sp, captured, launches):
             "shape": {"C": 1, "M": m, "R": r}, "at_C8": c8}
 
 
+# ---------------------------------------------------------------- sharding
+def sampler_mesh(n: int):
+    """n shards on n cards where the host has them, else all on cuda:0."""
+    import torch
+    from repro_torch.launch.mesh import make_sampler_mesh
+
+    if torch.cuda.device_count() >= n:
+        return make_sampler_mesh(n)
+    return make_sampler_mesh(devices=["cuda:0"] * n)
+
+
+def same_result(a, b) -> bool:
+    return (np.array_equal(a.items, b.items) and np.array_equal(a.mask, b.mask)
+            and a.trials == b.trials and a.accepted == b.accepted)
+
+
+def run_sharded_rejection(sampler, main_out):
+    """The main path's sampler placed on meshes of S = 1 and 2 (views of
+    its arrays: the shards share the card), 64 requests each with the main
+    path's seeds; the S = 2 run's descents and leaf blocks are recorded for
+    the tie analysis and the kernel phase.  After each engine run, the
+    per-item qualities of the placed rows through ``bilinear_sharded``, a
+    public op that no engine calls, counted apart.  Returns the line's
+    rejection part, the engine's and the qualities' counts, the records
+    and the S = 2 mesh."""
+    import torch
+    from repro_torch.core import det_ratio_exact
+    from repro_torch.core import tree as tree_mod
+    from repro_torch.kernels.bilinear import ops as bilinear_ops
+    from repro_torch.serve import sampler_engine as engine_mod
+    from repro_torch.serve.sampler_engine import SampleRequest, SamplerEngine
+
+    descend, leaf = tree_mod._descend_batch, tree_mod._leaf_scores_batch
+    fused = engine_mod._spec_round_fused
+    descents, leaves, ticks = [], [], []
+    eng = None
+
+    def rec_descend(tree, q, us):
+        blk = descend(tree, q, us)
+        if recording:
+            descents.append((q.clone(), us.clone(), blk.clone()))
+        return blk
+
+    def rec_leaf(w_blk, q):
+        if recording and not leaves:
+            leaves.append((w_blk.clone(), q.clone()))
+        return leaf(w_blk, q)
+
+    def rec_round(*a, **kw):
+        if recording:     # (first descent of the tick, the slots' rids)
+            ticks.append((len(descents), [None if r is None else r.rid
+                                          for r in eng.slot_req]))
+        return fused(*a, **kw)
+
+    expect = float(det_ratio_exact(sampler.sp))
+    part, outs, launches, q_launches = {}, {}, {}, {}
+    for n in SHARD_COUNTS:
+        mesh = sampler_mesh(n)
+        recording = n == max(SHARD_COUNTS)
+        tree_mod._descend_batch, tree_mod._leaf_scores_batch = (rec_descend,
+                                                                rec_leaf)
+        engine_mod._spec_round_fused = rec_round
+        try:
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            eng = SamplerEngine(sampler, n_slots=N_SLOTS, mesh=mesh)
+            for rid in range(N_REQUESTS):
+                eng.submit(SampleRequest(rid=rid, seed=SEED + rid))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eng.run()
+            torch.cuda.synchronize()
+            t_serve = time.perf_counter() - t0
+            counts = read_counts()
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            tree_mod._descend_batch, tree_mod._leaf_scores_batch = descend, leaf
+            engine_mod._spec_round_fused = fused
+        # per-item qualities L_ii = z_i^T X z_i = |v_i|^2 over the sharded
+        # catalog rows, through the public bilinear_sharded
+        reset_counts()
+        sp = eng.sampler.sp
+        quality = bilinear_ops.bilinear_sharded(sp.Z, sp.x_matrix(), mesh)
+        q_launches[n] = read_counts()
+        check(q_launches[n]["bilinear"] > 0,
+              f"kernel bilinear was not launched by bilinear_sharded (S={n})")
+        z = sampler.sp.Z
+        want_q = (z[:, :K_RANK] ** 2).sum(dim=1)
+        q_err = float((quality - want_q).abs().max())
+        check(q_err <= 1e-4 * float(want_q.abs().max()),
+              f"S={n}: item qualities off by {q_err}")
+        check(sorted(out) == list(range(N_REQUESTS)),
+              f"S={n}: sharded engine returned {len(out)} requests")
+        bad = [rid for rid, r in out.items()
+               if not valid_result(r, M_ITEMS, SampleRequest(rid=0).max_trials)]
+        check(not bad, f"S={n}: invalid sharded results for rids {bad[:10]}")
+        mean_trials = float(np.mean([r.trials for r in out.values()]))
+        check(0.5 * expect <= mean_trials <= 2.0 * expect,
+              f"S={n}: mean trials {mean_trials} outside [0.5, 2] x "
+              f"det_ratio_exact {expect}")
+        check(counts["bilinear_batched"] > 0,
+              f"kernel bilinear_batched was not launched on the sharded "
+              f"path (S={n})")
+        outs[n], launches[n] = out, counts
+        part[str(n)] = {
+            "shards": n, "devices": [str(d) for d in mesh.devices],
+            "n_spec": eng.n_spec, "ticks": eng.ticks, "serve_s": t_serve,
+            "requests_per_s": N_REQUESTS / t_serve,
+            "ms_per_tick": t_serve / eng.ticks * 1e3,
+            "mean_trials": mean_trials, "quality_max_abs_err": q_err,
+            "equal_to_unsharded": sum(same_result(out[r], main_out[r])
+                                      for r in out),
+            "peak_device_gb": peak / 1e9, "launches": counts,
+            "item_quality_launches": q_launches[n]}
+    differ = [r for r in range(N_REQUESTS)
+              if not same_result(outs[1][r], outs[2][r])]
+    check(not differ, f"rids {differ[:10]} differ between S = 1 and S = 2")
+
+    # the sharded descent (torch operations) against the descend_score
+    # kernel on the same projectors and uniforms: every lane that parts
+    # is a decision the two round differently; its float64 margin, and for
+    # each rid the first one
+    from repro_torch.kernels.spec_round import ops as spec_ops
+
+    tree = sampler.tree
+    lanes = parted = 0
+    first_margin = {}
+    for i, (q, us, blk) in enumerate(descents):
+        blk_k, _ = spec_ops.descend_score(tree.nodes, tree.W, tree.block, q, us)
+        lanes += q.shape[0]
+        start, rids = max((t for t in ticks if t[0] <= i), key=lambda t: t[0])
+        for lane in (blk != blk_k).nonzero().flatten().tolist():
+            parted += 1
+            rid = rids[lane // eng.n_spec]
+            if rid is not None and rid not in first_margin:
+                first_margin[rid] = _tie_margin(
+                    tree.nodes, tree.depth, q, us, lane, int(blk[lane]),
+                    int(blk_k[lane]))
+    part.update({
+        "equal_S1_S2": True, "descent_lanes": lanes,
+        "parted_lanes": parted,
+        "first_parting_margin_by_rid": {
+            str(r): m for r, m in sorted(first_margin.items())},
+        "rids_differing_from_unsharded": [
+            r for r in range(N_REQUESTS)
+            if not same_result(outs[2][r], main_out[r])]})
+    check(all(m < 1e-4 for m in first_margin.values()),
+          f"the sharded descent parts from the kernel's away from a near "
+          f"tie: {first_margin}")
+    return part, launches, q_launches, descents, leaves[0], sampler_mesh(2)
+
+
+def run_sharded_catalog(factors):
+    """One round of the four mutation batches on an unsharded catalog and
+    on meshed ones (S = 2 timed, then S = 1), the S = 2 tree against a
+    sharded rebuild and the unsharded tree, and 16 requests per catalog.
+    Returns the line's catalog part and the counts of the meshed runs."""
+    import torch
+    from repro_torch.core.dynamic import build_dual_proposal
+    from repro_torch.core.types import SpectralNDPP
+    from repro_torch.models import sharding as msh
+    from repro_torch.serve.catalog import Catalog
+    from repro_torch.serve.sampler_engine import SampleRequest, SamplerEngine
+
+    V, B, D = factors
+    m0 = CAT_CAPACITY - CAT_SLACK
+    rng = np.random.default_rng(SEED + 2)
+    n_ins = CAT_BATCH * 2
+    upd = rng.choice(m0, size=CAT_BATCH, replace=False)
+    src = rng.choice(m0, size=CAT_BATCH, replace=False)
+    gone = rng.choice(np.setdiff1d(np.arange(m0), upd), size=CAT_BATCH,
+                      replace=False)
+
+    def timed(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*a)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def build_and_mutate(mesh):
+        cat = Catalog(V[:m0], B[:m0], D, block=BLOCK, capacity=CAT_CAPACITY,
+                      staleness=1, device=DEVICE, mesh=mesh)
+        ms = {"insert": timed(cat.insert_items, V[m0:m0 + n_ins],
+                              B[m0:m0 + n_ins]),
+              "update": timed(cat.update_items, upd, V[src], B[src]),
+              "delete": timed(cat.delete_items, gone),
+              "refresh": timed(cat.refresh)}
+        return cat, ms
+
+    def serve(cat):
+        eng = SamplerEngine(cat, n_slots=N_SLOTS)
+        for rid in range(SHARDED_REQUESTS):
+            eng.submit(SampleRequest(rid=rid, seed=SEED + 50_000 + rid))
+        return eng.run()
+
+    def level_rows(tree, lvl):
+        return msh.full_rows(tree.level(lvl))
+
+    def trees_equal(a, b):
+        return (a.depth == b.depth
+                and torch.equal(msh.full_rows(a.W), msh.full_rows(b.W))
+                and all(torch.equal(level_rows(a, lvl), level_rows(b, lvl))
+                        for lvl in range(a.depth + 1)))
+
+    plain, _ = build_and_mutate(None)
+    plain_tree = plain._live_prop.tree
+    plain_out = serve(plain)
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    part, outs, launches = {}, {}, {}
+    for n in sorted(SHARD_COUNTS, reverse=True):
+        mesh = sampler_mesh(n)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        cat, ms = build_and_mutate(mesh)
+        outs[n] = serve(cat)
+        launches[n] = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        entry = {"batch_ms": ms, "peak_device_gb": peak / 1e9,
+                 "launches": launches[n]}
+        if n == 2:
+            live = cat._live_prop.tree
+            rebuilt = build_dual_proposal(
+                SpectralNDPP(Z=msh.full_rows(cat._sp.Z), sigma=cat._sp.sigma),
+                BLOCK, mesh=mesh).tree
+            entry["tree_equal_to_sharded_rebuild"] = trees_equal(live, rebuilt)
+            entry["tree_equal_to_unsharded"] = trees_equal(live, plain_tree)
+            check(entry["tree_equal_to_sharded_rebuild"],
+                  "the maintained sharded tree differs from a sharded rebuild")
+            check(entry["tree_equal_to_unsharded"],
+                  "the maintained sharded tree differs from the unsharded "
+                  "catalog's tree")
+            del live, rebuilt
+        for name in ("gathered_block_grams", "bilinear_batched"):
+            check(launches[n][name] > 0, f"kernel {name} was not launched on "
+                                         f"the sharded catalog (S={n})")
+        bad = [rid for rid, r in outs[n].items()
+               if not valid_result(r, CAT_CAPACITY,
+                                   SampleRequest(rid=0).max_trials)]
+        check(sorted(outs[n]) == list(range(SHARDED_REQUESTS)) and not bad,
+              f"S={n}: sharded catalog results missing or invalid {bad[:10]}")
+        entry["equal_to_unsharded"] = sum(
+            same_result(outs[n][r], plain_out[r]) for r in outs[n])
+        part[str(n)] = entry
+        del cat
+        gc.collect()
+        torch.cuda.empty_cache()
+    differ = [r for r in range(SHARDED_REQUESTS)
+              if not same_result(outs[1][r], outs[2][r])]
+    check(not differ, f"catalog rids {differ} differ between S = 1 and 2")
+    part["equal_S1_S2"] = True
+    part["requests"] = SHARDED_REQUESTS
+    return part, launches
+
+
+def run_sharded_mcmc(sp, mcmc_out):
+    """16 fixed-size MCMC requests (the MCMC phase's seeds) at S = 1 and 2.
+    Returns the line's MCMC part and the counts."""
+    import torch
+    from repro_torch.serve.sampler_engine import SampleRequest, SamplerEngine
+
+    part, outs, launches = {}, {}, {}
+    for n in SHARD_COUNTS:
+        mesh = sampler_mesh(n)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        eng = SamplerEngine(sp, backend="mcmc", mcmc_k=MCMC_K, n_slots=N_SLOTS,
+                            mesh=mesh)
+        for rid in range(SHARDED_REQUESTS):
+            eng.submit(SampleRequest(rid=rid, seed=SEED + rid))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[n] = eng.run()
+        torch.cuda.synchronize()
+        t_serve = time.perf_counter() - t0
+        launches[n] = read_counts()
+        check(sorted(outs[n]) == list(range(SHARDED_REQUESTS)),
+              f"S={n}: sharded MCMC returned {len(outs[n])} requests")
+        bad = invalid_mcmc(sp, outs[n])
+        check(not bad, f"S={n}: invalid sharded MCMC results {bad[:10]}")
+        check(launches[n]["score_all"] > 0,
+              f"kernel score_all was not launched on the sharded MCMC (S={n})")
+        part[str(n)] = {
+            "serve_s": t_serve, "requests_per_s": SHARDED_REQUESTS / t_serve,
+            "ticks": eng.ticks,
+            "equal_to_unsharded": sum(same_result(outs[n][r], mcmc_out[r])
+                                      for r in outs[n]),
+            "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches[n]}
+    differ = [r for r in range(SHARDED_REQUESTS)
+              if not same_result(outs[1][r], outs[2][r])]
+    check(not differ, f"MCMC rids {differ} differ between S = 1 and 2")
+    part["equal_S1_S2"] = True
+    part["requests"] = SHARDED_REQUESTS
+    return part, launches
+
+
+def check_bilinear_batched(sampler, descents, leaf, launches):
+    """Kernel 3 on the sharded path's first leaf scoring (N lanes, their
+    blocks' rows and projectors) against its plain version, and on every
+    recorded descent against descend_score's raw scores of the blocks the
+    kernel chose: the shared leaf stage must give the same bits."""
+    import torch
+    from repro_torch.kernels.bilinear import ops, ref
+    from repro_torch.kernels.spec_round import ops as spec_ops
+
+    w_blk, q = leaf
+    n, b, r = w_blk.shape
+    got = ops.bilinear_batched(w_blk, q)
+    want = ref.bilinear_batched_ref(w_blk, q)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    worst = err / max(float(want.abs().max()), 1e-30)
+    tree = sampler.tree
+    equal = 0
+    arange = torch.arange(tree.block, device=q.device)
+    for qd, us, _ in descents:
+        blk_k, raw = spec_ops.descend_score(tree.nodes, tree.W, tree.block,
+                                            qd, us)
+        rows = blk_k[:, None] * tree.block + arange
+        equal += bool(torch.equal(ops.bilinear_batched(tree.W[rows], qd), raw))
+    ok = worst <= 1e-4 and equal == len(descents)
+    ms = cuda_ms(lambda: ops.bilinear_batched(w_blk, q), reps=50)
+    plain_ms = cuda_ms(lambda: ref.bilinear_batched_ref(w_blk, q), reps=20)
+    library_ms = cuda_ms(lambda: (torch.bmm(w_blk, q) * w_blk).sum(-1),
+                         reps=20)
+    # Q_n is read once per lane, each row once; a quadratic form needs only
+    # Q_n's symmetric part: R^2 to symmetrize, R(R+1) FLOP a row
+    bms, by = bound((n * b * r + n * r * r + n * b) * 4.0,
+                    1.0 * n * b * r * (r + 1) + 1.0 * n * r * r)
+    return {"name": "bilinear_batched", "route": "cuda",
+            "source": "src/repro_torch/csrc/bilinear.cu",
+            "replaces": "src/repro/kernels/bilinear/bilinear.py:43",
+            "launches": launches, "max_abs_err": err,
+            "max_err_over_max_score": worst,
+            "tolerance": "within 1e-4 of the largest |score|; bit-equal to "
+                         "descend_score's raw scores of the same blocks",
+            "descents_equal_to_descend_score": equal,
+            "descents_compared": len(descents), "ok": ok, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms,
+            "library": "(torch.bmm(Zb, Q) * Zb).sum(-1)",
+            "shape": {"N": n, "B": b, "R": r}}
+
+
+def check_bilinear(sp, mesh, launches):
+    """Kernel 6 on the catalog's rows and X (the sharded path's item
+    qualities) at M = 2^20 and at a shard's M/2, in float32 and bfloat16,
+    against its plain version; bilinear_sharded bit-equal to bilinear."""
+    import torch
+    from repro_torch.kernels.bilinear import ops, ref
+
+    Z, W = sp.Z, sp.x_matrix()
+    m, r = Z.shape
+
+    def one(z, w, reps):
+        # float32 products run outside the tensor cores; bfloat16 ones,
+        # accumulated in float32, at the tensor cores' rate
+        rate = BF16_FLOP_PER_S if z.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+        got = ops.bilinear(z, w)
+        want = ref.bilinear_ref(z, w)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        mm = z.shape[0]
+        bms, by = bound((mm * r + r * r) * z.element_size() + mm * 4.0,
+                        1.0 * mm * r * (r + 1) + 1.0 * r * r, rate)
+        return {"M": mm, "dtype": str(z.dtype).replace("torch.", ""),
+                "max_abs_err": err, "max_err_over_max_score": err / scale,
+                "ok": err <= 1e-4 * scale,
+                "ms": cuda_ms(lambda: ops.bilinear(z, w), reps=reps),
+                "plain_ms": cuda_ms(lambda: ref.bilinear_ref(z, w), reps=reps),
+                "library_ms": cuda_ms(lambda: ((z @ w) * z).sum(-1),
+                                      reps=reps),
+                "bound_ms": bms, "bound_by": by}
+
+    def with_ratio(e):
+        return dict(e, ms_over_bound=e["ms"] / e["bound_ms"])
+
+    full = with_ratio(one(Z, W, 10))
+    half = with_ratio(one(Z[:m // 2], W, 10))
+    bf16 = with_ratio(one(Z.bfloat16(), W.bfloat16(), 10))
+    sharded_equal = bool(torch.equal(ops.bilinear_sharded(Z, W, mesh),
+                                     ops.bilinear(Z, W)))
+    return {"name": "bilinear", "route": "cuda",
+            "source": "src/repro_torch/csrc/bilinear.cu",
+            "replaces": "src/repro/kernels/bilinear/bilinear.py:65",
+            "launches": launches, "max_abs_err": full["max_abs_err"],
+            "tolerance": "within 1e-4 of the largest |score| (bfloat16 "
+                         "inputs widen exactly); bilinear_sharded bit-equal",
+            "bilinear_sharded_bit_equal": sharded_equal,
+            "ok": (full["ok"] and half["ok"] and bf16["ok"]
+                   and sharded_equal),
+            "ms": full["ms"], "plain_ms": full["plain_ms"],
+            "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+            "library_ms": full["library_ms"],
+            "library": "((Z @ W) * Z).sum(-1), two calls",
+            "shape": {"M": m, "R": r}, "at_half_M": half, "bfloat16": bf16}
+
+
 # --------------------------------------------------------------------- main
 def main() -> int:
     try:
@@ -832,24 +1266,50 @@ def main() -> int:
                 print(f"ptxas {kname}: {line.strip()}", flush=True)
 
     by_path = {}
-    sampler, captured, by_path["main_path"], factors = run_main_path()
+    sampler, captured, by_path["main_path"], factors, main_out = \
+        run_main_path()
     entries = [check_block_outer_sums(sampler, by_path["main_path"]),
                check_descend_score(sampler, captured, by_path["main_path"])]
+    sharded = {"meshes": list(SHARD_COUNTS)}
+    sharded["rejection"], rej_counts, q_counts, descents, leaf, mesh2 = \
+        run_sharded_rejection(sampler, main_out)
+    entries.append(check_bilinear_batched(sampler, descents, leaf, None))
     sp = sampler.sp                  # the MCMC phase's state; the tree goes
-    del sampler, captured
+    del sampler, captured, descents, leaf, main_out
     gc.collect()
     torch.cuda.empty_cache()
 
     cat, cat_captured, by_path["catalog"] = run_catalog(factors)
     entries.append(check_gathered_block_grams(
         cat_captured, by_path["catalog"]["gathered_block_grams"]))
-    del cat, cat_captured, factors
+    del cat, cat_captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded["catalog"], cat_counts = run_sharded_catalog(factors)
+    del factors
     gc.collect()
     torch.cuda.empty_cache()
 
-    mcmc_captured, by_path["mcmc"] = run_mcmc(sp)
+    mcmc_captured, by_path["mcmc"], mcmc_out = run_mcmc(sp)
     entries.append(check_score_all(sp, mcmc_captured,
                                    by_path["mcmc"]["score_all"]))
+    sharded["mcmc"], mcmc_counts = run_sharded_mcmc(sp, mcmc_out)
+    entries.append(check_bilinear(sp, mesh2, None))
+    # the sharded path's launches: its rejection, catalog and MCMC runs
+    runs = [c for counts in (rej_counts, cat_counts, mcmc_counts)
+            for c in counts.values()]
+    by_path["sharded"] = {k: sum(c[k] for c in runs) for k in runs[0]}
+    # bilinear_sharded's own launches: no engine, sampler or catalog
+    # calls kernel 6
+    qs = list(q_counts.values())
+    by_path["item_qualities"] = {k: sum(c[k] for c in qs) for k in qs[0]}
+    sharded["peak_device_gb"] = max(
+        p[str(n)]["peak_device_gb"] for p in (sharded["rejection"],
+                                              sharded["catalog"],
+                                              sharded["mcmc"])
+        for n in SHARD_COUNTS)
+    sharded["launches"] = by_path["sharded"]
+    emit({"sharded": sharded})
     for e in entries:
         e["launches_by_path"] = {p: c[e["name"]] for p, c in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())

@@ -1,6 +1,7 @@
 """Core NDPP math of the port: types, Youla, the proposal tree, the
 speculative rejection sampler, the dynamic-catalog proposal and the MCMC
-chains."""
+chains, each unsharded or item-sharded over a mesh."""
+from .bilinear import bilinear_scores, bilinear_scores_fast  # noqa: F401
 from .dynamic import (  # noqa: F401
     DualProposal,
     auto_n_spec_dynamic,
@@ -20,6 +21,7 @@ from .mcmc import (  # noqa: F401
     reanchor,
     remove_ratio,
     run_chains,
+    run_chains_sharded,
     sample_mcmc,
     score_matrix,
     swap_ratio,
@@ -35,15 +37,24 @@ from .rejection import (  # noqa: F401
     log_det_ratio_batch,
     preprocess,
     sample_batched_many,
+    shard_sampler,
 )
 from .tree import (  # noqa: F401
     SampleTree,
+    ShardedTree,
     construct_tree,
     dual_q0,
+    gather_tree,
     proposal_eigens,
     sample_elementary_batch,
+    sample_elementary_batch_sharded,
     sample_proposal_dpp_batch,
+    sample_proposal_dpp_batch_sharded,
+    shard_spectral,
+    shard_tree,
+    tree_shard_specs,
     update_rows,
+    update_rows_sharded,
 )
 from .types import (  # noqa: F401
     NDPPParams,

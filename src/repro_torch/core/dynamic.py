@@ -1,5 +1,5 @@
 """Incremental (dual-form) proposal maintenance for dynamic catalogs (port
-of ``repro/core/dynamic.py``, unsharded).
+of ``repro/core/dynamic.py``).
 
 The static sampler's tree holds the orthonormal eigenvector rows W of the
 proposal kernel Lhat, a basis in which one catalog-row change moves every
@@ -22,6 +22,11 @@ the initial projector ``Q0 = U_E diag(1/lam_E) U_E^T``
   exact while the snapshot dominates the live kernel (deletes, row
   downscales), at a rejection rate higher by det(Lhat_snap+I) /
   det(Lhat_live+I).
+
+With a mesh, the proposal's tree and Z rows are item-sharded
+(``tree.shard_tree``, ``tree.shard_spectral``), updates go to the owning
+shard (``tree.update_rows_sharded``) and the rounds run sharded, all
+bit-identical to the unsharded proposal.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import random as trandom
+from ..models import sharding as msh
 from .rejection import (
     RejectionSample,
     _drive_rounds_fused,
@@ -39,10 +45,13 @@ from .rejection import (
     log_det_ratio,
 )
 from .tree import (
-    SampleTree,
+    AnyTree,
     construct_tree,
     sample_proposal_dpp_batch,
+    shard_spectral,
+    shard_tree,
     update_rows,
+    update_rows_sharded,
 )
 from .types import SpectralNDPP
 
@@ -60,7 +69,7 @@ class DualProposal:
         proposes from, even after the live catalog has moved on.
     """
 
-    tree: SampleTree
+    tree: AnyTree
     u: torch.Tensor
     sp: SpectralNDPP
 
@@ -86,16 +95,23 @@ def dual_eigens(root: torch.Tensor, eps: float = 1e-10
 def build_dual_proposal(sp: SpectralNDPP, block: int = 64,
                         mesh=None) -> DualProposal:
     """The dual tree and eigens from scratch (catalog build and capacity
-    doubling); the leaf level goes through ``block_outer_sums``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= needs the sharded tree, which the port does not have yet "
-            "(ROADMAP, Queue 1: multi-GPU sharding)")
+    doubling); the leaf level goes through ``block_outer_sums``.  With
+    ``mesh``, the tree and Z are then placed item-sharded on it."""
     a = dual_rows(sp)
     tree = construct_tree(torch.zeros(a.shape[1], dtype=a.dtype,
                                       device=a.device), a, block=block)
-    lam, u = dual_eigens(tree.nodes[0])
-    return DualProposal(tree=dataclasses.replace(tree, lam=lam), u=u, sp=sp)
+    lam, u = dual_eigens(tree.root)
+    prop = DualProposal(tree=dataclasses.replace(tree, lam=lam), u=u, sp=sp)
+    return prop if mesh is None else shard_proposal(prop, mesh)
+
+
+def shard_proposal(prop: DualProposal, mesh) -> DualProposal:
+    """Place a proposal on a mesh: its tree and Z item-sharded
+    (``shard_tree``, ``shard_spectral``), u replicated; one already on
+    ``mesh`` keeps its arrays."""
+    return DualProposal(tree=shard_tree(prop.tree, mesh),
+                        u=prop.u.to(mesh.device),
+                        sp=shard_spectral(prop.sp, mesh))
 
 
 def update_proposal(prop: DualProposal, idx: torch.Tensor,
@@ -105,14 +121,16 @@ def update_proposal(prop: DualProposal, idx: torch.Tensor,
     ``update_rows`` (copy-on-write, bit-equal to a rebuild) and the dual
     eigens from the maintained root.  ``idx`` (B,) unique rows, ``z_rows``
     (B, R) new Z rows (zeros = delete), ``new_sp`` the updated spectral
-    state the proposal now matches.  ``prop`` is left as it was."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= needs update_rows_sharded, which the port does not have "
-            "yet (ROADMAP, Queue 1: multi-GPU sharding)")
+    state the proposal now matches.  ``prop`` is left as it was.  With
+    ``mesh`` every row goes to the shard owning it
+    (``update_rows_sharded``), bit-equal to the unsharded update."""
     xhalf = torch.sqrt(new_sp.x_diag_hat())
-    tree = update_rows(prop.tree, idx, z_rows * xhalf[None, :])
-    lam, u = dual_eigens(tree.nodes[0])
+    a_rows = z_rows * xhalf[None, :]
+    if mesh is None:
+        tree = update_rows(prop.tree, idx, a_rows)
+    else:
+        tree = update_rows_sharded(prop.tree, idx, a_rows, mesh)
+    lam, u = dual_eigens(tree.root)
     return DualProposal(tree=dataclasses.replace(tree, lam=lam), u=u,
                         sp=new_sp)
 
@@ -157,7 +175,8 @@ def expected_trials_dynamic(prop: DualProposal,
     the snapshot's maintained eigenvalues, the denominator an R x R
     determinant.  Equals ``det_ratio_exact`` for a fresh snapshot."""
     ld_hat = torch.sum(torch.log1p(prop.tree.lam))
-    g = live_sp.Z.T @ live_sp.Z
+    z = msh.full_rows(live_sp.Z)
+    g = z.T @ z
     eye = torch.eye(g.shape[0], dtype=g.dtype, device=g.device)
     _, ld_l = torch.linalg.slogdet(eye + live_sp.x_matrix() @ g)
     return torch.exp(ld_hat - ld_l)
@@ -186,17 +205,19 @@ def sample_dynamic_many(
     for key, since no result depends on the schedule.  The proposal is a
     ``DualProposal`` snapshot and the acceptance test rescores ``live_sp``,
     so draws follow the live kernel exactly while the snapshot dominates
-    it.  Returns tensors on the proposal's device.
+    it.  ``mesh``: place the proposal and ``live_sp`` on it
+    (``shard_proposal``, ``shard_spectral``) and run the same rounds
+    item-sharded, with the same draws.  Returns
+    tensors on the proposal's (first) device.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= needs the sharded dual round, which the port does not "
-            "have yet (ROADMAP, Queue 1: multi-GPU sharding)")
+        prop = shard_proposal(prop, mesh)
+        live_sp = shard_spectral(live_sp, mesh)
     if observer is not None:
         raise NotImplementedError(
             "observer= is not ported yet (ROADMAP, Queue 1: observability "
             "and the front door)")
-    dev = prop.tree.W.device
+    dev = prop.tree.device
     if n_spec is None:
         n_spec = auto_n_spec_dynamic(prop, live_sp, max_spec)
     key = trandom.as_key(key, dev)

@@ -1,5 +1,5 @@
 """MCMC sampling for NDPPs: low-rank up/down/swap Metropolis chains (port of
-``repro/core/mcmc.py``, unsharded, without telemetry).
+``repro/core/mcmc.py``, without telemetry).
 
 For an unconstrained NDPP the rejection sampler's rate det(Lhat+I)/det(L+I)
 is unbounded, so this module samples Pr(Y) ∝ det(L_Y) with a
@@ -31,6 +31,12 @@ key schedule, bit for bit), so a trajectory does not depend on batching or
 on how its steps are split across calls.  The noise of a call's steps does
 not depend on the chain states and is drawn up front; ``lax.scan`` becomes
 a Python loop of batched steps.
+
+Sharded (``run_chains_sharded``): the catalog rows Z are split over a
+mesh and the chain states stay on its first device; only a candidate's
+row z_j and the <= 2K subset rows cross shards, each fetched from its
+owner by a psum of exact zeros (``models.sharding``), so trajectories
+equal the unsharded chains'.  Candidates are drawn over the global M.
 """
 from __future__ import annotations
 
@@ -42,6 +48,8 @@ import torch
 
 from .. import random as trandom
 from ..kernels.mcmc_score import ops as mcmc_score_ops
+from ..models import sharding as msh
+from .tree import shard_spectral
 from .types import SpectralNDPP
 
 _TINY = 1e-30
@@ -75,12 +83,14 @@ def _rows(n: int, dev: torch.device) -> torch.Tensor:
     return torch.arange(n, device=dev)
 
 
-def _masked_rows(Z: torch.Tensor, items: torch.Tensor,
+def _masked_rows(Z: msh.Rows, items: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
-    return Z[items.clamp_min(0)] * mask[..., None].to(Z.dtype)
+    """Subset rows ``Z[items] * mask``; a row-sharded Z's rows come from
+    their owners (``models.sharding.gather_rows``), bit-equal."""
+    return msh.gather_rows(Z, items, mask)
 
 
-def _padded_l(Z: torch.Tensor, x: torch.Tensor, items: torch.Tensor,
+def _padded_l(Z: msh.Rows, x: torch.Tensor, items: torch.Tensor,
               mask: torch.Tensor) -> torch.Tensor:
     zy = _masked_rows(Z, items, mask)
     return zy @ x @ zy.transpose(-1, -2) + torch.diag_embed(
@@ -106,7 +116,7 @@ def reanchor(sp: SpectralNDPP, states: MCMCState) -> MCMCState:
     recompute each cached inverse against the new rows.  Step counters are
     kept, so the chains' later randomness does not depend on when the swap
     happened."""
-    rows = sp.Z[states.items.clamp_min(0)]
+    rows = _masked_rows(sp.Z, states.items, states.mask)
     live = (rows.abs() > 0).any(dim=-1)
     mask = states.mask & live
     items = torch.where(mask, states.items, torch.full_like(states.items, -1))
@@ -126,12 +136,12 @@ def init_empty(sp: SpectralNDPP, n_chains: int = 1) -> MCMCState:
         step=torch.zeros(n_chains, dtype=torch.int64, device=dev))
 
 
-def _uvt(Z: torch.Tensor, x: torch.Tensor, state: MCMCState,
+def _uvt(Z: msh.Rows, x: torch.Tensor, state: MCMCState,
          j: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per chain: u = Z_Y X z_j, v = Z_Y X^T z_j (v_r = L[j, r]),
     t = L[j, j].  j: (C,) -> u, v (C, R), t (C,)."""
     zy = _masked_rows(Z, state.items, state.mask)                 # (C, R, R)
-    zj = Z[j]                                                     # (C, R)
+    zj = msh.gather_row(Z, j)                                     # (C, R)
     xz = zj @ x.T                                                 # X z_j
     xtz = zj @ x                                                  # X^T z_j
     u = torch.einsum("cri,ci->cr", zy, xz)
@@ -226,7 +236,7 @@ def _cond_remove(state: MCMCState, slot: torch.Tensor,
         step=state.step)
 
 
-def _cond_add(Z: torch.Tensor, x: torch.Tensor, state: MCMCState,
+def _cond_add(Z: msh.Rows, x: torch.Tensor, state: MCMCState,
               j: torch.Tensor, slot: torch.Tensor,
               pred: torch.Tensor) -> MCMCState:
     """Add item j at padding slot ``slot`` of each chain where ``pred``: a
@@ -276,7 +286,7 @@ def _step_noise(chain_keys: torch.Tensor, steps: torch.Tensor, m: int,
                   u_acc=trandom.uniform(ks[..., 3, :]))
 
 
-def _mh_step(Z: torch.Tensor, x: torch.Tensor, state: MCMCState,
+def _mh_step(Z: msh.Rows, x: torch.Tensor, state: MCMCState,
              noise: _Noise, *, fixed: bool, p_swap: float
              ) -> Tuple[MCMCState, torch.Tensor]:
     """One Metropolis step of every chain, with this step's noise (C, ...).
@@ -346,11 +356,13 @@ def run_chains(sp: SpectralNDPP, chain_keys: torch.Tensor,
     absolute-step schedule ``step % refresh_every == 0``, checked at block
     boundaries of ``refresh_every`` steps from the call's start, so calls
     whose sizes divide ``refresh_every`` reproduce a single call exactly.
+    A row-sharded ``sp.Z`` (``run_chains_sharded``) is read through its
+    owners; candidates are drawn over the global M either way.
     """
     Z = sp.Z
     x = sp.x_matrix()
     c, r = states.items.shape
-    dev = Z.device
+    dev = sp.sigma.device
     chain_keys = trandom.as_key(chain_keys, dev)
     steps = states.step[:, None] + torch.arange(n_steps, device=dev)[None, :]
     noise = _step_noise(chain_keys, steps, Z.shape[0], r)
@@ -371,18 +383,44 @@ def run_chains(sp: SpectralNDPP, chain_keys: torch.Tensor,
     return state, items_tr, mask_tr, acc_tr
 
 
+def run_chains_sharded(sp: SpectralNDPP, chain_keys: torch.Tensor,
+                       states: MCMCState, *, mesh, n_steps: int,
+                       fixed: bool = False, p_swap: float = 0.25,
+                       refresh_every: int = 64):
+    """``run_chains`` with the (M, 2K) catalog rows sharded over the mesh
+    "model" axis (placed first unless they already are).  The chain states
+    stay on the mesh's first device; only the candidate row z_j and the
+    <= 2K subset rows cross shards, each from its owner by a psum of exact
+    zeros, so the trajectories equal the unsharded ``run_chains``'s while
+    each device holds M/S rows.  M must divide over the mesh."""
+    s = msh.model_extent(mesh)
+    m_total = sp.Z.shape[0]
+    if m_total % s != 0:
+        raise ValueError(
+            f"the mesh 'model' extent {s} must divide the catalog size "
+            f"M={m_total}; pad the catalog or use a smaller mesh")
+    return run_chains(shard_spectral(sp, mesh), chain_keys.to(mesh.device),
+                      MCMCState(*(a.to(mesh.device) for a in states)),
+                      n_steps=n_steps, fixed=fixed, p_swap=p_swap,
+                      refresh_every=refresh_every)
+
+
 # --------------------------------------------------------------- greedy init
 
 
 def _greedy_round(sp: SpectralNDPP, states: MCMCState,
                   chain_keys: torch.Tensor, round_idx: int) -> MCMCState:
     """One greedy round: score every candidate for every chain with the
-    ``score_all`` kernel and add one item per chain with probability
-    proportional to its positive determinant gain."""
+    ``score_all`` kernel (on each shard's rows when Z is sharded) and add
+    one item per chain with probability proportional to its positive
+    determinant gain."""
     x = sp.x_matrix()
     m = sp.Z.shape[0]
-    a = score_matrix(sp, states)                                  # (C, R, R)
-    scores = mcmc_score_ops.score_all(sp.Z, a.contiguous())       # (C, M)
+    a = score_matrix(sp, states).contiguous()                     # (C, R, R)
+    if isinstance(sp.Z, msh.ShardedRows):
+        scores = mcmc_score_ops.score_all_sharded(sp.Z, a, sp.Z.mesh)
+    else:
+        scores = mcmc_score_ops.score_all(sp.Z, a)                # (C, M)
     # taken items are excluded (-inf), not floored: a floored logit could
     # re-pick a held item and wedge the chain on a duplicate id
     held = torch.where(states.mask, states.items,
@@ -402,7 +440,7 @@ def init_greedy(sp: SpectralNDPP, key, n_chains: int, k: int) -> MCMCState:
     """Stochastic-greedy size-k starts for C = ``n_chains`` chains, each a
     distinct size-k subset with det(L_Y) > 0 and a freshly inverted cache.
     Round i of chain c draws from ``fold_in(split(key, C)[c], i)``."""
-    chain_keys = trandom.split(trandom.as_key(key, sp.Z.device), n_chains)
+    chain_keys = trandom.split(trandom.as_key(key, sp.sigma.device), n_chains)
     states = init_empty(sp, n_chains)
     for i in range(k):
         states = _greedy_round(sp, states, chain_keys, i)
@@ -422,17 +460,15 @@ def sample_mcmc(
     ``k=None`` runs the up/down chain from Y = ∅; an integer ``k`` runs the
     fixed-size swap chain from stochastic-greedy size-k starts.  Each of
     ``n_chains`` chains contributes ``ceil(n_samples / n_chains)`` states
-    taken every ``thin`` steps after ``burn_in``.
+    taken every ``thin`` steps after ``burn_in``.  ``mesh``: keep the
+    catalog rows on their shards (``run_chains_sharded``), with the same
+    draws.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= needs run_chains_sharded, which the port does not have "
-            "yet (ROADMAP, Queue 1: multi-GPU sharding)")
     if observer is not None:
         raise NotImplementedError(
             "observer= is not ported yet (ROADMAP, Queue 1: observability "
             "and the front door)")
-    dev = sp.Z.device
+    dev = sp.sigma.device
     key = trandom.as_key(key, dev)
     n_chains = min(n_chains, n_samples)
     per_chain = -(-n_samples // n_chains)
@@ -443,9 +479,15 @@ def sample_mcmc(
     else:
         states = init_greedy(sp, trandom.fold_in(key, 0x6d636d63), n_chains,
                              k)
-    _, items_tr, mask_tr, acc_tr = run_chains(
-        sp, chain_keys, states, n_steps=n_steps, fixed=k is not None,
-        p_swap=p_swap, refresh_every=refresh_every)
+    if mesh is None:
+        _, items_tr, mask_tr, acc_tr = run_chains(
+            sp, chain_keys, states, n_steps=n_steps, fixed=k is not None,
+            p_swap=p_swap, refresh_every=refresh_every)
+    else:
+        _, items_tr, mask_tr, acc_tr = run_chains_sharded(
+            sp, chain_keys, states, mesh=mesh, n_steps=n_steps,
+            fixed=k is not None, p_swap=p_swap, refresh_every=refresh_every)
+        dev = mesh.device
     take = burn_in + thin * np.arange(1, per_chain + 1) - 1
     take_t = torch.as_tensor(take, device=dev)
     r = items_tr.shape[-1]

@@ -1,5 +1,5 @@
 """Rejection NDPP sampling (Section 4, Algorithm 2); port of
-``repro/core/rejection.py``, unsharded, speculative path only.
+``repro/core/rejection.py``, speculative path only.
 
 Target:   Pr_L(Y)    ∝ det(L_Y),      L    = Z X Z^T (nonsymmetric)
 Proposal: Pr_Lhat(Y) ∝ det(Lhat_Y),   Lhat = Z Xhat Z^T (symmetric PSD)
@@ -15,6 +15,13 @@ retires at its first acceptance.  Proposal t of a request is always keyed
 ``fold_in(request_key, t)``, so draws, trial counts and accept flags do not
 depend on how proposals were batched — they equal the reference's, key for
 key.
+
+Item-axis sharding (``shard_sampler``, ``sample_batched_many(mesh=)``):
+the tree's deep levels and W and the Z rows live split over a mesh, and
+each round runs the descent, the leaf scoring and the Z-row gathers of
+the log-det ratio on the shards owning the rows, combined by psums of
+exact zeros (``models.sharding``).  Draws, trial counts and accept flags
+equal the unsharded sampler's.
 """
 from __future__ import annotations
 
@@ -26,11 +33,14 @@ import torch
 
 from .. import random as trandom
 from ..device import DeviceLike, resolve_device
+from ..models import sharding as msh
 from .tree import (
-    SampleTree,
+    AnyTree,
     construct_tree,
     proposal_eigens,
     sample_proposal_dpp_batch,
+    shard_spectral,
+    shard_tree,
 )
 from .types import SpectralNDPP
 
@@ -45,10 +55,11 @@ class RejectionSample(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class NDPPSampler:
     """Preprocessed state for repeated sublinear-time sampling: the
-    spectral form and the proposal tree, on one device."""
+    spectral form and the proposal tree, on one device or, after
+    ``shard_sampler``, on a mesh."""
 
     sp: SpectralNDPP
-    tree: SampleTree
+    tree: AnyTree
 
     @property
     def M(self) -> int:
@@ -56,7 +67,7 @@ class NDPPSampler:
 
     @property
     def device(self) -> torch.device:
-        return self.tree.W.device
+        return self.tree.device
 
 
 def preprocess(V, B, D, block: int = 64, *, device: DeviceLike = None
@@ -70,12 +81,6 @@ def preprocess(V, B, D, block: int = 64, *, device: DeviceLike = None
     lam, w = proposal_eigens(sp)
     tree = construct_tree(lam, w, block=block)
     return NDPPSampler(sp=sp, tree=tree)
-
-
-def _masked_rows(Z: torch.Tensor, items: torch.Tensor,
-                 mask: torch.Tensor) -> torch.Tensor:
-    rows = Z[items.clamp_min(0)]
-    return rows * mask[..., None].to(Z.dtype)
 
 
 def _log_det_ratio_rows(sp: SpectralNDPP, zy: torch.Tensor,
@@ -113,8 +118,9 @@ def log_det_ratio(sp: SpectralNDPP, items: torch.Tensor, mask: torch.Tensor,
     stale-proposal acceptance of the dynamic catalog.  A live row zeroed by
     a delete makes sign(det L_Y) = 0, so deleted items are always rejected.
     """
-    zy = _masked_rows(sp.Z, items, mask)
-    live_rows = None if live_z is None else _masked_rows(live_z, items, mask)
+    zy = msh.gather_rows(sp.Z, items, mask)
+    live_rows = (None if live_z is None
+                 else msh.gather_rows(live_z, items, mask))
     return _log_det_ratio_rows(sp, zy, mask, live_rows=live_rows,
                                live_x=live_x)
 
@@ -135,8 +141,10 @@ def expected_trials(sp: SpectralNDPP) -> torch.Tensor:
 
 def det_ratio_exact(sp: SpectralNDPP) -> torch.Tensor:
     """det(Lhat + I) / det(L + I) without the orthogonality assumption, via
-    2K x 2K determinants (det(I + Z A Z^T) = det(I + A Z^T Z))."""
-    g = sp.Z.T @ sp.Z
+    2K x 2K determinants (det(I + Z A Z^T) = det(I + A Z^T Z)); a sharded
+    Z is gathered first."""
+    z = msh.full_rows(sp.Z)
+    g = z.T @ z
     eye = torch.eye(g.shape[0], dtype=g.dtype, device=g.device)
     _, ld_l = torch.linalg.slogdet(eye + sp.x_matrix() @ g)
     _, ld_h = torch.linalg.slogdet(eye + sp.x_diag_hat()[:, None] * g)
@@ -174,6 +182,19 @@ def _spec_round_fused(sampler: NDPPSampler, slot_keys: torch.Tensor,
     return _spec_round_impl(sampler, keys)
 
 
+def shard_sampler(sampler: NDPPSampler, mesh) -> NDPPSampler:
+    """Place a preprocessed sampler on a mesh: the tree's deep levels and
+    W and the Z rows item-sharded over the "model" axis (shallow levels,
+    lam and sigma replicated); a sampler already on ``mesh`` keeps its
+    arrays.  The placed sampler draws the same samples through the same
+    entry points (``_spec_round_impl``, ``sample_batched_many``): its
+    descent, leaf scoring and Z-row gathers run on the shards owning the
+    rows, combined by psums of exact zeros on the mesh's first device.
+    """
+    return NDPPSampler(sp=shard_spectral(sampler.sp, mesh),
+                       tree=shard_tree(sampler.tree, mesh))
+
+
 def auto_n_spec(sampler: NDPPSampler, max_spec: int = 64) -> int:
     """Speculation depth that accepts most requests in one round: the next
     power of two >= E[#trials] = det(Lhat+I)/det(L+I), capped at max_spec."""
@@ -193,13 +214,14 @@ def sample_batched_many(
     keys) or an (n, 2) array of per-request keys.  ``n_spec=None``
     auto-sizes the rounds to ~E[#trials] (``auto_n_spec``).  Rounds keep a
     constant width of ``n * n_spec`` lanes (``_drive_rounds_fused``), as
-    on the reference's default path.  Returns a stacked RejectionSample
-    with leading dim n, on the sampler's device.
+    on the reference's default path.  ``mesh``: run every round
+    item-sharded over the mesh "model" axis (``shard_sampler``, then the
+    same rounds; pass its output to place the arrays once); the results
+    equal the unsharded path's.  Returns a stacked RejectionSample with
+    leading dim n, on the sampler's (first) device.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= needs the sharded sampler, which the port does not have "
-            "yet (ROADMAP, Queue 1: multi-GPU sharding)")
+        sampler = shard_sampler(sampler, mesh)
     if observer is not None:
         raise NotImplementedError(
             "observer= needs the reference's observed drive_rounds driver, "

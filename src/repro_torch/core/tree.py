@@ -1,5 +1,5 @@
 """Sublinear-time tree-based DPP sampling (Section 4.2, Algorithm 3); port
-of ``repro/core/tree.py``, unsharded.
+of ``repro/core/tree.py``.
 
 The tree is flat, level-indexed and truncated at leaf blocks of ``block``
 items: a traversal descends ``log2(M / block)`` levels (one <Q, Σ> inner
@@ -11,20 +11,37 @@ concatenates or pads the levels (5.2 GB at M = 2^20, R = 200, block = 64).
 
 The proposal DPP (Section 4.1) is ``Lhat = Z Xhat Z^T``; its eigenpairs
 come from the R x R Gram of ``Z Xhat^1/2``, never from the M x M kernel.
+
+Item-axis sharding (``shard_tree``, ``ShardedTree``): shard s of S owns
+leaf blocks [s n_blocks/S, (s+1) n_blocks/S) and the matching rows of W;
+levels with at most ``_SHALLOW_MAX`` nodes (the root included) are
+replicated.  The levels are pairwise sums of contiguous children, so a
+shard's slice of a deep level is exactly the sub-tree over its own
+blocks.  A sharded descent scores each deep level's left child on the
+shard that owns it and sums the partials (``models.sharding.psum``, one
+owner plus exact zeros), so it visits the same blocks as the unsharded
+descent bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
 from .. import random as trandom
+from ..kernels.bilinear import ops as bilinear_ops
 from ..kernels.spec_round import ops as spec_ops
+from ..kernels.spec_round.ref import _SHALLOW_MAX
 from ..kernels.tree_sum import ops as tree_sum_ops
 from ..models import sharding as msh
 from .types import SpectralNDPP
+
+#: the deepest replicated level: levels 0.._N_TOP have at most
+#: _SHALLOW_MAX nodes, are replicated on every shard and are scored with
+#: the descent's stacked matmul
+_N_TOP = _SHALLOW_MAX.bit_length() - 1
 
 
 def proposal_eigens(sp: SpectralNDPP, eps: float = 1e-10
@@ -73,6 +90,15 @@ class SampleTree:
     @property
     def R(self) -> int:
         return self.W.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.W.device
+
+    @property
+    def root(self) -> torch.Tensor:
+        """sum_j w_j w_j^T (R, R)."""
+        return self.nodes[0]
 
     def level(self, lvl: int) -> torch.Tensor:
         return self.nodes[(1 << lvl) - 1:(1 << (lvl + 1)) - 1]
@@ -124,6 +150,188 @@ def update_rows(tree: SampleTree, idx: torch.Tensor, rows: torch.Tensor,
                       nodes=nodes, block=tree.block, M=tree.M)
 
 
+# --------------------------------------------------------------------------
+# Item-axis sharding.  A ShardedTree keeps the replicated shallow levels as
+# one contiguous stack on the mesh's first device and every deeper level
+# as a ``ShardedRows`` over its node axis (replicated instead when the
+# mesh extent does not divide it); W is sharded by whole leaf blocks.
+# Placing a tree on a mesh whose devices already hold it makes views, not
+# copies.
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedTree:
+    """A ``SampleTree`` placed on a mesh (``shard_tree``).
+
+    ``top`` stacks levels 0..min(depth, 5) (at most ``_SHALLOW_MAX`` nodes
+    each), root first, on ``mesh.device``; ``deep[i]`` is level
+    ``_N_TOP + 1 + i``, a ``ShardedRows`` of its nodes or, where the mesh
+    extent does not divide its node count, one replicated tensor.  ``W``
+    is a ``ShardedRows`` of whole leaf blocks, or replicated when
+    ``M_pad`` is not a multiple of S * block.
+    """
+
+    mesh: object
+    top: torch.Tensor
+    deep: Tuple[msh.Rows, ...]
+    W: msh.Rows
+    lam: torch.Tensor
+    block: int
+    M: int
+
+    @property
+    def n_blocks(self) -> int:
+        return self.W.shape[0] // self.block
+
+    @property
+    def depth(self) -> int:
+        return self.n_blocks.bit_length() - 1
+
+    @property
+    def R(self) -> int:
+        return self.W.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device
+
+    @property
+    def root(self) -> torch.Tensor:
+        return self.top[0]
+
+    def level(self, lvl: int) -> msh.Rows:
+        """Level ``lvl``: a view into ``top`` or an entry of ``deep``."""
+        if lvl <= _N_TOP:
+            return self.top[(1 << lvl) - 1:(1 << (lvl + 1)) - 1]
+        return self.deep[lvl - _N_TOP - 1]
+
+
+AnyTree = Union[SampleTree, ShardedTree]
+
+
+def tree_shard_specs(tree: SampleTree, mesh) -> dict:
+    """Where ``shard_tree`` puts each array (the reference's SampleTree of
+    PartitionSpecs): ``{"W": spec, "levels": (spec, ...), "lam": spec}``
+    with "model" on a sharded axis and None on a replicated one.  Levels
+    with more than ``_SHALLOW_MAX`` nodes shard when the mesh extent
+    divides them; W shards only when every shard gets whole leaf blocks
+    (``M_pad % (S * block) == 0``), so a leaf block never straddles
+    shards."""
+    s = msh.model_extent(mesh)
+    levels = tuple(
+        msh.logical_to_spec(mesh, ("items", None, None), (1 << lvl, 0, 0))
+        if (1 << lvl) > _SHALLOW_MAX else (None, None, None)
+        for lvl in range(tree.depth + 1))
+    w_spec = (msh.logical_to_spec(mesh, ("items", None), tree.W.shape)
+              if tree.W.shape[0] % (s * tree.block) == 0 else (None, None))
+    return {"W": w_spec, "levels": levels, "lam": (None,)}
+
+
+def _place(x: torch.Tensor, spec, mesh) -> msh.Rows:
+    return (msh.shard_rows(x, mesh) if spec[0] == "model"
+            else x.to(mesh.device))
+
+
+def shard_tree(tree: AnyTree, mesh) -> ShardedTree:
+    """Place a tree on ``mesh``: deep levels and W item-sharded, shallow
+    levels and lam replicated (``tree_shard_specs``).  The placed tree
+    samples bit-identically to ``tree`` through the same entry points."""
+    if isinstance(tree, ShardedTree):
+        if tree.mesh == mesh:
+            return tree
+        tree = gather_tree(tree)
+    specs = tree_shard_specs(tree, mesh)
+    n_top = min(tree.depth, _N_TOP)
+    return ShardedTree(
+        mesh=mesh, top=tree.nodes[:(1 << (n_top + 1)) - 1].to(mesh.device),
+        deep=tuple(_place(tree.level(lvl), specs["levels"][lvl], mesh)
+                   for lvl in range(n_top + 1, tree.depth + 1)),
+        W=_place(tree.W, specs["W"], mesh), lam=tree.lam.to(mesh.device),
+        block=tree.block, M=tree.M)
+
+
+def gather_tree(tree: AnyTree) -> SampleTree:
+    """The plain ``SampleTree`` of a placed tree, on the mesh's first
+    device (a copy of every level)."""
+    if isinstance(tree, SampleTree):
+        return tree
+    nodes = torch.cat([tree.top] + [msh.full_rows(lv) for lv in tree.deep])
+    return SampleTree(W=msh.full_rows(tree.W), lam=tree.lam, nodes=nodes,
+                      block=tree.block, M=tree.M)
+
+
+def shard_spectral(sp: SpectralNDPP, mesh) -> SpectralNDPP:
+    """Place a SpectralNDPP on ``mesh``: Z rows item-sharded (replicated
+    when M does not divide the mesh), sigma replicated."""
+    return SpectralNDPP(Z=msh.shard_rows(sp.Z, mesh),
+                        sigma=sp.sigma.to(mesh.device))
+
+
+def update_rows_sharded(tree: AnyTree, idx: torch.Tensor, rows: torch.Tensor,
+                        mesh) -> ShardedTree:
+    """``update_rows`` for a tree placed on ``mesh`` (placed first if it is
+    not).  Each row update goes to the shard owning it, which scatters its
+    W rows and recomputes the touched leaf Grams (``gathered_block_grams``
+    on its own rows); every level is then patched on the shard owning the
+    node, the replicated levels from the psum of the owners' values (exact
+    zeros elsewhere), so the result is bit-equal to the plain
+    ``update_rows`` and to a rebuild.  Copy-on-write, as ``update_rows``."""
+    tree = shard_tree(tree, mesh)
+    block, dev = tree.block, tree.device
+    idx = idx.to(dev, torch.int64)
+    blks = idx // block
+    w_new = msh.scatter_rows(tree.W, idx, rows.to(dev, torch.float32))
+    if isinstance(w_new, msh.ShardedRows):
+        parts = []
+        for s, (w_loc, d) in enumerate(zip(w_new.parts, mesh.devices)):
+            own, loc = msh.owned(blks.to(d), s, w_loc.shape[0] // block)
+            g = tree_sum_ops.gathered_block_grams(w_loc, loc, block)
+            parts.append(torch.where(own[:, None, None], g, 0.0))
+        vals = msh.psum(parts, dev)
+    else:
+        vals = tree_sum_ops.gathered_block_grams(w_new, blks, block)
+    top = tree.top.clone()
+    deep = list(tree.deep)
+    nodes = blks
+    for lvl in range(tree.depth, -1, -1):
+        arr = tree.level(lvl)
+        if lvl <= _N_TOP:
+            arr = top[(1 << lvl) - 1:(1 << (lvl + 1)) - 1]
+            arr[nodes] = vals
+        elif isinstance(arr, msh.ShardedRows):
+            new = []
+            for s, (part, d) in enumerate(zip(arr.parts, mesh.devices)):
+                own, loc = msh.owned(nodes.to(d), s, part.shape[0])
+                p = part.clone()
+                p[loc[own]] = vals.to(d)[own]
+                new.append(p)
+            arr = deep[lvl - _N_TOP - 1] = msh.ShardedRows(mesh, tuple(new))
+        else:
+            arr = arr.clone()
+            arr[nodes] = vals
+            deep[lvl - _N_TOP - 1] = arr
+        if lvl == 0:
+            break
+        parents = nodes // 2
+        if isinstance(arr, msh.ShardedRows):
+            # both children from their owners: one owner, exact zeros
+            parts = []
+            for s, (part, d) in enumerate(zip(arr.parts, mesh.devices)):
+                pd = parents.to(d)
+                own_l, loc_l = msh.owned(2 * pd, s, part.shape[0])
+                own_r, loc_r = msh.owned(2 * pd + 1, s, part.shape[0])
+                parts.append(torch.where(own_l[:, None, None], part[loc_l], 0.0)
+                             + torch.where(own_r[:, None, None], part[loc_r],
+                                           0.0))
+            vals = msh.psum(parts, dev)
+        else:
+            vals = arr[2 * parents] + arr[2 * parents + 1]
+        nodes = parents
+    return ShardedTree(mesh=mesh, top=top, deep=tuple(deep), W=w_new,
+                       lam=tree.lam, block=block, M=tree.M)
+
+
 def dual_q0(u: torch.Tensor, lam: torch.Tensor, e_masks: torch.Tensor,
             eps: float = 1e-10) -> torch.Tensor:
     """Elementary-DPP projectors for a dual tree (rows a_j = z_j x̂_j^1/2).
@@ -139,7 +347,69 @@ def dual_q0(u: torch.Tensor, lam: torch.Tensor, e_masks: torch.Tensor,
     return torch.einsum("ik,nk,jk->nij", u, w, u)
 
 
-def sample_elementary_batch(tree: SampleTree, e_masks: torch.Tensor,
+def _descend_batch(tree: ShardedTree, q: torch.Tensor,
+                   us: torch.Tensor) -> torch.Tensor:
+    """Root-to-block traversal of a placed tree for N lanes in lockstep:
+    the arithmetic of ``kernels.spec_round.ref.descend_ref``, expression
+    for expression, with each sharded level's left-child score taken on
+    the shard owning the node and psum'd (the other shards add exact
+    zeros).  q: (N, R, R), us: (N, >= depth).  Returns the chosen block
+    per lane (N,) int64."""
+    n, r = q.shape[0], q.shape[-1]
+    dev = tree.device
+    idx = torch.zeros(n, dtype=torch.int64, device=dev)
+    qf = q.reshape(n, r * r)
+    p_all = qf @ tree.root.reshape(r * r)
+    n_sh = min(tree.depth, _N_TOP)
+    if n_sh:
+        all_scores = tree.top[1:].reshape(-1, r * r) @ qf.T  # (nodes, N)
+    lanes = torch.arange(n, device=dev)
+    for lvl in range(1, tree.depth + 1):
+        nodes = tree.level(lvl)
+        if lvl <= n_sh:
+            p_left = all_scores[(1 << lvl) - 2 + 2 * idx, lanes]
+        elif isinstance(nodes, msh.ShardedRows):
+            parts = []
+            for s, (part, d) in enumerate(zip(nodes.parts,
+                                              tree.mesh.devices)):
+                own, loc = msh.owned((2 * idx).to(d), s, part.shape[0])
+                left = part[loc]                                # (N, R, R)
+                parts.append(torch.where(
+                    own, (q.to(d) * left).sum(dim=(1, 2)), 0.0))
+            p_left = msh.psum(parts, dev)
+        else:
+            p_left = (q * nodes[2 * idx]).sum(dim=(1, 2))
+        go_left = us[:, lvl - 1] * p_all.clamp_min(1e-30) \
+            <= p_left.clamp_min(0.0)
+        idx = 2 * idx + (~go_left).long()
+        p_all = torch.where(go_left, p_left, p_all - p_left).clamp_min(0.0)
+    return idx
+
+
+def _leaf_scores_batch(w_blk: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Raw leaf scores for N lanes: (N, block, R) x (N, R, R) -> (N, block)
+    through the ``bilinear_batched`` kernel (its plain version on the CPU)."""
+    return bilinear_ops.bilinear_batched(w_blk, q)
+
+
+def _leaf_scores_sharded(tree: ShardedTree, blk: torch.Tensor,
+                         q: torch.Tensor) -> torch.Tensor:
+    """Raw scores of each lane's chosen block, scored by the shard owning
+    the block's rows and psum'd (exact zeros from the other shards)."""
+    block = tree.block
+    if not isinstance(tree.W, msh.ShardedRows):
+        rows = blk[:, None] * block + torch.arange(block, device=blk.device)
+        return _leaf_scores_batch(tree.W[rows], q)
+    parts = []
+    for s, (w_loc, d) in enumerate(zip(tree.W.parts, tree.mesh.devices)):
+        own, loc = msh.owned(blk.to(d), s, w_loc.shape[0] // block)
+        rows = loc[:, None] * block + torch.arange(block, device=d)
+        raw = _leaf_scores_batch(w_loc[rows], q.to(d))
+        parts.append(torch.where(own[:, None], raw, 0.0))
+    return msh.psum(parts, tree.device)
+
+
+def sample_elementary_batch(tree: AnyTree, e_masks: torch.Tensor,
                             keys: torch.Tensor,
                             q0: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -156,12 +426,20 @@ def sample_elementary_batch(tree: SampleTree, e_masks: torch.Tensor,
     ``q0`` overrides the (N, R, R) initial projectors: the dual tree of
     ``core.dynamic`` passes ``dual_q0(u, lam, e_masks)``; the default is
     the orthonormal-basis projector diag(e_mask).
+
+    A ``SampleTree`` descends and scores in the ``descend_score`` kernel; a
+    ``ShardedTree`` descends in ``_descend_batch`` and scores its leaf
+    blocks on their owning shards with the ``bilinear_batched`` kernel,
+    and the chosen item's row comes from its owner, so the draws equal
+    the unsharded ones for any shard count (on the card up to the
+    decisions the two descents round differently: near ties).
     """
     n, r = e_masks.shape
     dev = e_masks.device
+    sharded = isinstance(tree, ShardedTree)
     n_e = e_masks.sum(dim=1)                                      # (N,)
     n_steps = int(n_e.max()) if n else 0
-    q = (torch.diag_embed(e_masks.to(tree.W.dtype)) if q0 is None
+    q = (torch.diag_embed(e_masks.to(tree.lam.dtype)) if q0 is None
          else q0.contiguous())                                    # (N, R, R)
     items = torch.full((n, r), -1, dtype=torch.int64, device=dev)
     if n_steps == 0:
@@ -171,10 +449,13 @@ def sample_elementary_batch(tree: SampleTree, e_masks: torch.Tensor,
     gumbel_all = trandom.gumbel(kk[:, :, 1], (tree.block,))       # (N, T, b)
     for t in range(n_steps):
         active = t < n_e                                          # (N,)
-        # descent + leaf scoring: the spec_round kernel on the card, its
-        # plain version on the CPU; raw scores are unclamped
-        blk, raw = spec_ops.descend_score(tree.nodes, tree.W, tree.block, q,
-                                          us_all[:, t].contiguous())
+        # descent + leaf scoring; raw scores are unclamped
+        if sharded:
+            blk = _descend_batch(tree, q, us_all[:, t])
+            raw = _leaf_scores_sharded(tree, blk, q)
+        else:
+            blk, raw = spec_ops.descend_score(tree.nodes, tree.W, tree.block,
+                                              q, us_all[:, t].contiguous())
         logits = torch.log(raw.clamp_min(0.0) + 1e-30)
         j_local = torch.argmax(gumbel_all[:, t] + logits, dim=-1)
         j = blk * tree.block + j_local
@@ -187,7 +468,7 @@ def sample_elementary_batch(tree: SampleTree, e_masks: torch.Tensor,
     return items, items >= 0
 
 
-def sample_proposal_dpp_batch(tree: SampleTree, keys: torch.Tensor,
+def sample_proposal_dpp_batch(tree: AnyTree, keys: torch.Tensor,
                               dual_u: Optional[torch.Tensor] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """N draws Y ~ DPP(Lhat), one per key in ``keys`` (N, 2): eigenvector
@@ -201,3 +482,26 @@ def sample_proposal_dpp_batch(tree: SampleTree, keys: torch.Tensor,
     e_masks = u_e < probs[None, :]
     q0 = None if dual_u is None else dual_q0(dual_u, tree.lam, e_masks)
     return sample_elementary_batch(tree, e_masks, ks[:, 1], q0=q0)
+
+
+def sample_proposal_dpp_batch_sharded(tree: AnyTree, keys: torch.Tensor, mesh,
+                                      dual_u: Optional[torch.Tensor] = None
+                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``sample_proposal_dpp_batch`` with the tree on ``mesh`` (placed
+    first if it is not): deep-level descent and leaf scoring run on the
+    shard owning the nodes and rows, combined by psums of exact zeros, so
+    draws equal the unsharded sampler's for any shard count.  Returns
+    (items, mask) on the mesh's first device."""
+    return sample_proposal_dpp_batch(
+        shard_tree(tree, mesh), keys.to(mesh.device),
+        dual_u=None if dual_u is None else dual_u.to(mesh.device))
+
+
+def sample_elementary_batch_sharded(tree: AnyTree, e_masks: torch.Tensor,
+                                    keys: torch.Tensor, mesh
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``sample_elementary_batch`` through a tree on ``mesh`` (see
+    ``sample_proposal_dpp_batch_sharded``)."""
+    return sample_elementary_batch(shard_tree(tree, mesh),
+                                   e_masks.to(mesh.device),
+                                   keys.to(mesh.device))

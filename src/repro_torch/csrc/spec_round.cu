@@ -21,9 +21,13 @@
 // hard maximum R of kMaxR.  Thread 0 takes each decision with the
 // reference's exact float32 expression and broadcasts it through shared
 // memory.  depth == 0 (one leaf block) runs the same code with no levels.
+// The leaf stage is leaf_score.cuh's, shared with bilinear_batched
+// (bilinear.cu), so both give the same bits for the same block and Q.
 // Faster designs (several lanes per CTA, Q split across a cluster, CUDA
 // graphs around the round) are later work.
 #include <cuda_runtime.h>
+
+#include "leaf_score.cuh"
 
 namespace {
 
@@ -93,26 +97,10 @@ descend_score_kernel(const float* __restrict__ nodes,
     __syncthreads();
   }
 
-  // leaf block: warp w scores rows w, w + kWarps, ...; lane j accumulates
-  // column j of z^T Q (conflict-free reads of Q's row i), then z . (z^T Q)
+  // leaf block: the shared leaf stage (leaf_score.cuh), Q from shared memory
   const long long idx = s_idx;
-  const int warp = tid >> 5, lane = tid & 31;
-  const float* wb = W + idx * block * R;
-  float* z = rows + warp * R;
-  for (int b = warp; b < block; b += kWarps) {
-    const float* src = wb + (long long)b * R;
-    for (int i = lane; i < R; i += 32) z[i] = src[i];
-    __syncwarp();
-    float acc = 0.f;
-    for (int j = lane; j < R; j += 32) {
-      float c = 0.f;
-      for (int i = 0; i < R; ++i) c = fmaf(z[i], sq[i * R + j], c);
-      acc = fmaf(c, z[j], acc);
-    }
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0) scores[n * block + b] = acc;
-    __syncwarp();
-  }
+  repro_torch::leaf_block_scores(W + idx * block * R, sq, block, R, rows,
+                                 scores + n * block);
   if (tid == 0) blk_out[n] = idx;
 }
 

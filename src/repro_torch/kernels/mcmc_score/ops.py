@@ -1,5 +1,6 @@
-"""Dispatcher for the MCMC all-candidate scorer (port of
-``repro/kernels/mcmc_score/ops.py::score_all``, unsharded).
+"""Dispatchers for the MCMC all-candidate scorer (port of
+``repro/kernels/mcmc_score/ops.py``): ``score_all`` and its mesh
+versions ``score_all_sharded`` and ``score_argmax_sharded``.
 
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
 launches ``csrc/mcmc_score.cu`` or raises — there is no fallback.
@@ -11,14 +12,16 @@ import ctypes
 import torch
 
 from .. import _build
+from ...models import sharding as msh
 from .ref import score_all_ref
 
 #: the largest R the kernel takes: a 64-row tile of Z and a 32-column panel
 #: of A_c (400 R bytes) must fit in one CTA's shared memory
 MAX_R = 512
 
-#: launches of the CUDA kernel by ``score_all`` since the count was last
-#: set to 0 (plain-version calls on CPU tensors do not count)
+#: launches of the CUDA kernel by ``score_all`` (one per shard in the
+#: sharded scorers) since the count was last set to 0 (plain-version calls
+#: on CPU tensors do not count)
 launches = 0
 
 
@@ -68,3 +71,34 @@ def score_all(Z: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     global launches
     launches += 1
     return out
+
+
+def score_all_sharded(Z: msh.Rows, A: torch.Tensor, mesh) -> torch.Tensor:
+    """``score_all`` over a mesh: each shard scores only its own (M/S, R)
+    rows.  A row's score does not depend on M or on the row's place, so the
+    values are bit-equal to the unsharded scorer.  ``Z`` is a
+    ``ShardedRows`` on ``mesh`` or a plain (M, R) tensor split evenly (M
+    must divide over the mesh).  Returns (C, M), gathered on the mesh's
+    first device."""
+    parts = msh.row_parts(Z, mesh)
+    return torch.cat([score_all(p, A.to(d)).to(mesh.device)
+                      for p, d in zip(parts, mesh.devices)], dim=1)
+
+
+def score_argmax_sharded(Z: msh.Rows, A: torch.Tensor, mesh):
+    """Best candidate per chain without gathering (C, M) anywhere: each
+    shard reduces its own scores to one (C,) winner and only the (S, C)
+    per-shard winners are gathered and reduced.  Ties go to the lowest
+    shard, then the lowest row, as ``argmax`` over the whole row does.
+    Returns (scores (C,), global item indices (C,))."""
+    parts = msh.row_parts(Z, mesh)
+    maxes, args = [], []
+    for s, (p, d) in enumerate(zip(parts, mesh.devices)):
+        sc = score_all(p, A.to(d))                                # (C, M/S)
+        maxes.append(sc.max(dim=1).values.to(mesh.device))
+        args.append((sc.argmax(dim=1) + s * p.shape[0]).to(mesh.device))
+    all_max = torch.stack(maxes)                                  # (S, C)
+    all_arg = torch.stack(args)
+    win = all_max.argmax(dim=0)                                   # (C,)
+    c = torch.arange(all_max.shape[1], device=mesh.device)
+    return all_max[win, c], all_arg[win, c]

@@ -1,5 +1,5 @@
 """Versioned dynamic catalog: streaming item insert, update and delete
-(port of ``repro/serve/catalog.py``, unsharded, without telemetry).
+(port of ``repro/serve/catalog.py``, without telemetry).
 
 ``Catalog`` keeps three pieces of state consistent:
 
@@ -25,6 +25,12 @@ changes under an in-flight request.  At M = 2^20, R = 200 the copy is the
 Insertions land in the zero-padded slack (freed slots reused lowest
 first); when the slack runs out the capacity doubles and the tree is
 rebuilt from scratch.
+
+With ``mesh=`` the catalog is item-sharded: Z and the tree live split
+over the mesh, each mutation batch is routed to the shards owning its
+rows (``models.sharding.scatter_rows_sharded``,
+``core.tree.update_rows_sharded``) and sampling runs the sharded rounds,
+all bit-identical to the unsharded catalog.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ from ..core.rejection import RejectionSample
 from ..core.types import SpectralNDPP
 from ..core.youla import youla_transform_np
 from ..device import DeviceLike, resolve_device
+from ..models import sharding as msh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,24 +96,27 @@ class Catalog:
         of leaf blocks (default: the natural padding of M).
       staleness: how many consecutive delete batches may defer the
         snapshot reinstall (0 = always fresh).
-      device: where the state lives (default ``cuda``).
+      mesh: item-shard the catalog over the mesh "model" axis
+        (``repro_torch.launch.mesh.make_sampler_mesh``); the state then
+        lives on the mesh's devices and replicated arrays on its first.
+      device: where the state lives without a mesh (default ``cuda``).
 
-    ``mesh=`` and ``telemetry=`` are not ported yet and raise.
+    ``telemetry=`` is not ported yet and raises.
     """
 
     def __init__(self, V, B, D, *, block: int = 64,
                  capacity: Optional[int] = None, staleness: int = 0,
                  mesh=None, telemetry=None, device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= needs scatter_rows_sharded and the sharded tree, which "
-                "the port does not have yet (ROADMAP, Queue 1: multi-GPU "
-                "sharding)")
         if telemetry is not None:
             raise NotImplementedError(
                 "telemetry= is not ported yet (ROADMAP, Queue 1: "
                 "observability and the front door)")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            msh.model_extent(mesh)
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
         self.block = block
         self.staleness = staleness
         v = torch.as_tensor(V, dtype=torch.float32).to(self.device)
@@ -130,16 +140,21 @@ class Catalog:
 
     # ------------------------------------------------------------- plumbing
     def _round_capacity(self, cap: int) -> int:
-        """Round up to a power-of-two leaf-block count."""
+        """Round up to a power-of-two leaf-block count (and at least one
+        block per shard when meshed, so the tree stays shardable)."""
         n_blocks = 1 << max(0, math.ceil(
             math.log2(max(1, -(-cap // self.block)))))
+        if self.mesh is not None:
+            n_blocks = max(n_blocks, msh.model_extent(self.mesh))
         return n_blocks * self.block
 
     def _install(self, z: torch.Tensor):
         """Full (re)build of the live state and dual proposal: catalog
         construction and capacity doubling only."""
         self._sp = SpectralNDPP(Z=z, sigma=self._sigma)
-        self._live_prop = build_dual_proposal(self._sp, self.block)
+        self._live_prop = build_dual_proposal(self._sp, self.block,
+                                              mesh=self.mesh)
+        self._sp = self._live_prop.sp      # mesh: the placed copy
         self._snap = self._live_prop
         self._snap_version = self._version
         self._deferred = 0
@@ -149,11 +164,14 @@ class Catalog:
         live proposal advanced incrementally, the version bumped, and the
         snapshot reinstalled unless a deferral was asked for and budgeted."""
         idx_t = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
-        z = self._sp.Z.clone()
-        z[idx_t] = z_rows
+        if self.mesh is None:
+            z = msh.scatter_rows(self._sp.Z, idx_t, z_rows)
+        else:
+            z = msh.scatter_rows_sharded(self._sp.Z, idx_t, z_rows,
+                                         self.mesh)
         self._sp = SpectralNDPP(Z=z, sigma=self._sigma)
         self._live_prop = update_proposal(self._live_prop, idx_t, z_rows,
-                                          self._sp)
+                                          self._sp, mesh=self.mesh)
         self._version += 1
         if not install and self._deferred < self.staleness:
             self._deferred += 1
@@ -263,7 +281,7 @@ class Catalog:
         cap = self._round_capacity(cap)
         z = torch.zeros((cap, self._sp.Z.shape[1]), dtype=torch.float32,
                         device=self.device)
-        z[:self.capacity] = self._sp.Z
+        z[:self.capacity] = msh.full_rows(self._sp.Z)  # off any mesh first
         alive = np.zeros(cap, bool)
         alive[:self._alive.size] = self._alive
         self._alive = alive
@@ -274,10 +292,12 @@ class Catalog:
     def sample_many(self, key, n: int, *, n_spec: Optional[int] = None,
                     max_trials: int = 1000, **kw) -> RejectionSample:
         """Draw ``n`` exact samples from the live kernel through the current
-        snapshot (``core.dynamic.sample_dynamic_many``)."""
+        snapshot (``core.dynamic.sample_dynamic_many``, sharded on the
+        catalog's mesh)."""
         st = self.state()
         return sample_dynamic_many(st.proposal, st.sp, key, n, n_spec=n_spec,
-                                   max_trials=max_trials, **kw)
+                                   max_trials=max_trials, mesh=self.mesh,
+                                   **kw)
 
 
 CatalogLike = Union[Catalog, CatalogState]

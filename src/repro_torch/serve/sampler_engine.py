@@ -1,5 +1,5 @@
 """Slot-based batched serving engine for NDPP sampling (port of
-``repro/serve/sampler_engine.py``, unsharded, without telemetry).
+``repro/serve/sampler_engine.py``, without telemetry).
 
 ``backend="rejection"`` (default): a fixed pool of ``n_slots`` requests
 shares one speculative round per tick; every slot contributes ``n_spec``
@@ -15,6 +15,11 @@ distinct pinned state still in flight.
 chain (``core.mcmc``, up/down or fixed-size swap); one batched call
 advances the whole pool ``mcmc_steps_per_tick`` steps per tick, and a slot
 retires with its chain state at step ``burn_in + thin``.
+
+``mesh=``: the item axis is sharded over a mesh (``launch/mesh.py``); the
+engine places the sampler (or catalog state) once, at construction and in
+``swap_catalog``, and every tick runs the same round or chain step, whose
+row reads go to the owning shards; results equal the unsharded engine's.
 
 Exactness: proposal t of request ``rid`` is drawn from
 ``fold_in(PRNGKey(seed), t)`` and MH step t of a chain from
@@ -32,9 +37,20 @@ import torch
 
 from .. import random as trandom
 from ..core import mcmc as mcmc_core
-from ..core.dynamic import _spec_round_dual_fused, auto_n_spec_dynamic
-from ..core.rejection import NDPPSampler, _spec_round_fused, auto_n_spec
+from ..core.dynamic import (
+    _spec_round_dual_fused,
+    auto_n_spec_dynamic,
+    shard_proposal,
+)
+from ..core.rejection import (
+    NDPPSampler,
+    _spec_round_fused,
+    auto_n_spec,
+    shard_sampler,
+)
+from ..core.tree import shard_spectral
 from ..core.types import SpectralNDPP
+from ..models import sharding as msh
 from .catalog import Catalog, CatalogState, as_state
 
 #: the greedy start's key: fold_in(PRNGKey(seed), "grdy")
@@ -121,9 +137,15 @@ class SamplerEngine:
         chain from stochastic-greedy size-k starts.
       mcmc_p_swap: swap-move weight of the up/down chain.
       mcmc_refresh_every: exact O(R^3) inverse-cache refresh period.
+      mesh: shard the item axis over the mesh "model" axis.  The engine
+        places the sampler or catalog state once (``shard_sampler`` /
+        ``shard_spectral`` / ``shard_proposal``, also in ``swap_catalog``)
+        and every tick runs the same round or chain step on the placed
+        arrays; results equal the unsharded engine's.  M must divide over the mesh and, for a
+        static sampler, every shard must own whole leaf blocks.  A
+        ``Catalog`` brings its own mesh.
 
-    ``mesh=`` and ``telemetry=`` are not ported yet and raise
-    ``NotImplementedError``.
+    ``telemetry=`` is not ported yet and raises ``NotImplementedError``.
     """
 
     def __init__(self, sampler: Union[NDPPSampler, SpectralNDPP, Catalog,
@@ -136,19 +158,23 @@ class SamplerEngine:
                  mcmc_refresh_every: int = 64, mesh=None, telemetry=None):
         if backend not in ("rejection", "mcmc"):
             raise ValueError(f"unknown backend {backend!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= is not ported yet (ROADMAP, Queue 1: multi-GPU "
-                "sharding)")
         if telemetry is not None:
             raise NotImplementedError(
                 "telemetry= is not ported yet (ROADMAP, Queue 1: "
                 "observability and the front door)")
         self.backend = backend
+        self.mesh = mesh
         self._cat: Optional[CatalogState] = None
         self.sampler: Optional[NDPPSampler] = None
         if isinstance(sampler, (Catalog, CatalogState)):
-            self._cat = as_state(sampler)
+            # the catalog owns mesh placement: its arrays are already on it
+            if isinstance(sampler, Catalog):
+                if mesh is not None and sampler.mesh != mesh:
+                    raise ValueError(
+                        "pass the catalog's own mesh (or none): the catalog "
+                        "arrays are already placed on it")
+                self.mesh = mesh = sampler.mesh
+            self._cat = self._placed(as_state(sampler))
             self.sp = self._cat.sp
         elif isinstance(sampler, NDPPSampler):
             self.sampler = sampler
@@ -161,7 +187,27 @@ class SamplerEngine:
                 f"Catalog/CatalogState"
                 + (" or a SpectralNDPP" if backend == "mcmc" else "")
                 + f", not {type(sampler).__name__}")
-        self.device = self.sp.Z.device
+        if mesh is not None and self._cat is None:
+            s = msh.model_extent(mesh)
+            if self.sp.M % s != 0:
+                raise ValueError(
+                    f"the mesh 'model' extent {s} must divide the catalog "
+                    f"size M={self.sp.M}: pad the catalog or shrink the mesh")
+            if self.sampler is not None:
+                tree = self.sampler.tree
+                if tree.W.shape[0] % (s * tree.block) != 0:
+                    # an engine that silently replicated the tree (the bulk
+                    # of the memory) would be a configuration fault
+                    raise ValueError(
+                        f"cannot shard the proposal tree: each shard must "
+                        f"own whole leaf blocks, i.e. {s} * block="
+                        f"{tree.block} must divide M_pad={tree.W.shape[0]}: "
+                        f"use a smaller block or shrink the mesh")
+                self.sampler = shard_sampler(self.sampler, mesh)
+                self.sp = self.sampler.sp
+            else:
+                self.sp = shard_spectral(self.sp, mesh)
+        self.device = self.sp.sigma.device
         self.n_slots = n_slots
         if backend == "rejection":
             self._auto_spec = n_spec is None
@@ -217,7 +263,7 @@ class SamplerEngine:
         is re-anchored on the new rows (``mcmc.reanchor``, which drops
         deleted items); step counters, and so key schedules, are kept.
         """
-        st = as_state(cat)
+        st = self._placed(as_state(cat))
         if self.backend == "rejection" and self._cat is None:
             raise ValueError("swap_catalog on a rejection engine requires "
                              "it to have been built from a Catalog")
@@ -227,6 +273,15 @@ class SamplerEngine:
             self._states = mcmc_core.reanchor(st.sp, self._states)
         elif self._auto_spec:
             self.n_spec = auto_n_spec_dynamic(st.proposal, st.sp)
+
+    def _placed(self, st: CatalogState) -> CatalogState:
+        """``st`` with its proposal and live state placed on the engine's
+        mesh (a state already placed there keeps its arrays)."""
+        if self.mesh is None:
+            return st
+        return dataclasses.replace(
+            st, sp=shard_spectral(st.sp, self.mesh),
+            proposal=shard_proposal(st.proposal, self.mesh))
 
     def _init_chain_state(self, seed: int) -> mcmc_core.MCMCState:
         """Deterministic per-request chain start: empty for the up/down
@@ -278,10 +333,11 @@ class SamplerEngine:
         self.ticks += 1
         n_steps = self.mcmc_steps_per_tick
         keys = torch.from_numpy(self.slot_key.astype(np.int64)).to(self.device)
+        kw = dict(n_steps=n_steps, fixed=self.mcmc_k is not None,
+                  p_swap=self.mcmc_p_swap,
+                  refresh_every=self.mcmc_refresh_every)
         self._states, items_tr, mask_tr, _ = mcmc_core.run_chains(
-            self.sp, keys, self._states, n_steps=n_steps,
-            fixed=self.mcmc_k is not None, p_swap=self.mcmc_p_swap,
-            refresh_every=self.mcmc_refresh_every)
+            self.sp, keys, self._states, **kw)
         # the one device-to-host copy of the tick
         r = items_tr.shape[-1]
         packed = torch.cat([items_tr, mask_tr.long()], dim=2).cpu().numpy()
@@ -327,13 +383,14 @@ class SamplerEngine:
             [self.slot_key.astype(np.int64),
              (self.slot_trials & 0xFFFFFFFF)[:, None]], axis=1)
         dev = torch.from_numpy(host).to(self.device)
+        keys, trials = dev[:, :2], dev[:, 2]
         for pin, group in groups:
             if pin is None:
-                out = _spec_round_fused(self.sampler, dev[:, :2], dev[:, 2],
+                out = _spec_round_fused(self.sampler, keys, trials,
                                         n_spec=self.n_spec)
             else:
-                out = _spec_round_dual_fused(pin.proposal, pin.sp, dev[:, :2],
-                                             dev[:, 2], n_spec=self.n_spec)
+                out = _spec_round_dual_fused(pin.proposal, pin.sp, keys,
+                                             trials, n_spec=self.n_spec)
             self._harvest(group, *out)
         return True
 

@@ -15,6 +15,7 @@ from repro.core import preprocess as jax_preprocess
 from repro.serve.sampler_engine import SampleRequest as JaxRequest
 from repro.serve.sampler_engine import SamplerEngine as JaxEngine
 from repro_torch.core.types import SpectralNDPP
+from repro_torch.launch.mesh import make_sampler_mesh
 from repro_torch.serve.sampler_engine import (
     SampleRequest,
     SamplerEngine,
@@ -97,10 +98,12 @@ def test_host_key_matches_reference():
 
 def test_unported_options_raise(samplers):
     _, got = samplers
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SamplerEngine(got, backend="mcmc", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SamplerEngine(got, mesh=object())
+    # mesh= is ported: the reference's two configuration errors remain
+    with pytest.raises(ValueError, match="must divide the catalog size"):
+        SamplerEngine(got, backend="mcmc",
+                      mesh=make_sampler_mesh(devices=["cpu"] * 3))
+    with pytest.raises(ValueError, match="whole leaf blocks"):
+        SamplerEngine(got, mesh=make_sampler_mesh(devices=["cpu"] * 8))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SamplerEngine(got, telemetry=object())
     with pytest.raises(ValueError):

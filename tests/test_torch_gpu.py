@@ -4,9 +4,12 @@ no CPU mode) and run on the H100 with ``pytest -m gpu tests/test_torch_gpu.py``.
 
 Tolerances: the kernels sum in float32 in another order than cuBLAS /
 PyTorch's reductions, so values agree to rtol 1e-5 (Gram) and 1e-4 of the
-largest score (descent, all-candidate scores); block ids on these
-well-separated random inputs must be equal.  The gathered Grams share the
-full build's contraction and must be bit-equal to it.
+largest score (descent, all-candidate scores, quadratic forms); block ids
+on these well-separated random inputs must be equal.  The gathered Grams
+share the full build's contraction and must be bit-equal to it;
+``bilinear_batched`` shares ``descend_score``'s leaf stage and must be
+bit-equal to its raw scores; the sharded scorers must be bit-equal to one
+call over all rows.
 """
 import dataclasses
 
@@ -15,12 +18,21 @@ import pytest
 import torch
 
 from repro_torch import random as trandom
-from repro_torch.core import SpectralNDPP, preprocess, sample_batched_many
+from repro_torch.core import (
+    SpectralNDPP,
+    gather_tree,
+    preprocess,
+    sample_batched_many,
+    shard_sampler,
+)
 from repro_torch.core.rejection import NDPPSampler
 from repro_torch.kernels.spec_round import ops as spec_ops
 from repro_torch.kernels.spec_round.ref import descend_score_ref
 from repro_torch.core.dynamic import dual_rows
 from repro_torch.core.tree import construct_tree
+from repro_torch.kernels.bilinear import ops as bilinear_ops
+from repro_torch.kernels.bilinear.ref import bilinear_batched_ref, bilinear_ref
+from repro_torch.launch.mesh import make_sampler_mesh
 from repro_torch.kernels.mcmc_score import ops as score_ops
 from repro_torch.kernels.mcmc_score.ref import score_all_ref
 from repro_torch.kernels.tree_sum import ops as tree_sum_ops
@@ -29,6 +41,7 @@ from repro_torch.kernels.tree_sum.ref import (
     gathered_block_grams_ref,
 )
 from repro_torch.serve.catalog import Catalog
+from repro_torch.serve.sampler_engine import SampleRequest, SamplerEngine
 
 pytestmark = pytest.mark.gpu
 
@@ -185,3 +198,132 @@ def test_score_all_refuses_wide_r(cuda):
     with pytest.raises(ValueError, match="R <="):
         score_ops.score_all(torch.zeros((4, r), device=cuda),
                             torch.zeros((1, r, r), device=cuda))
+
+
+@pytest.mark.parametrize("n,b,r", [(3, 5, 8), (4, 64, 33), (64, 64, 200),
+                                   (5, 5, 200), (2, 5, 512), (3, 64, 512)])
+def test_bilinear_batched_kernel(cuda, n, b, r):
+    rng = np.random.default_rng(n * 100 + b + r)
+    z = torch.as_tensor(rng.normal(size=(n, b, r)).astype(np.float32),
+                        device=cuda)
+    w = torch.as_tensor(rng.normal(size=(n, r, r)).astype(np.float32),
+                        device=cuda)
+    before = bilinear_ops.batched_launches
+    got = bilinear_ops.bilinear_batched(z, w)
+    torch.cuda.synchronize()
+    assert bilinear_ops.batched_launches == before + 1
+    want = bilinear_batched_ref(z, w)
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("depth,block,r,n", [(3, 5, 8, 6), (5, 64, 33, 9),
+                                             (4, 64, 200, 16)])
+def test_bilinear_batched_equals_descend_score_leaf(cuda, depth, block, r, n):
+    """The two kernels share the leaf stage: bilinear_batched's scores of
+    the blocks descend_score chose are its raw scores, bit for bit."""
+    rng = np.random.default_rng(depth * 7 + r)
+    nodes = _tree(rng, depth, r, cuda)
+    w = torch.as_tensor(rng.normal(size=((1 << depth) * block, r))
+                        .astype(np.float32), device=cuda)
+    qh = rng.normal(size=(n, r, r)).astype(np.float32)
+    q = torch.as_tensor(np.einsum("nik,njk->nij", qh, qh) / r, device=cuda)
+    us = torch.as_tensor(rng.uniform(size=(n, depth)).astype(np.float32),
+                         device=cuda)
+    blk, raw = spec_ops.descend_score(nodes, w, block, q, us)
+    rows = blk[:, None] * block + torch.arange(block, device=cuda)
+    assert torch.equal(bilinear_ops.bilinear_batched(w[rows], q), raw)
+
+
+@pytest.mark.parametrize("m,r", [(1, 8), (100, 33), (4097, 200), (64, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bilinear_kernel(cuda, m, r, dtype):
+    rng = np.random.default_rng(m + r)
+    z = torch.as_tensor(rng.normal(size=(m, r)), device=cuda).to(dtype)
+    w = torch.as_tensor(rng.normal(size=(r, r)), device=cuda).to(dtype)
+    before = bilinear_ops.launches
+    got = bilinear_ops.bilinear(z, w)
+    torch.cuda.synchronize()
+    assert bilinear_ops.launches == before + 1 and got.dtype == torch.float32
+    # bfloat16 inputs widen exactly to float32: the same tolerance holds
+    want = bilinear_ref(z, w)
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+def test_bilinear_refuses_mixed_dtypes_and_wide_r(cuda):
+    z = torch.zeros((4, 8), device=cuda)
+    with pytest.raises(ValueError, match="both"):
+        bilinear_ops.bilinear(z, torch.zeros((8, 8), device=cuda,
+                                             dtype=torch.bfloat16))
+    r = bilinear_ops.MAX_R + 1
+    with pytest.raises(ValueError, match="R <="):
+        bilinear_ops.bilinear(torch.zeros((4, r), device=cuda),
+                              torch.zeros((r, r), device=cuda))
+
+
+@pytest.mark.parametrize("s,m", [(2, 4096), (3, 3000), (4, 1024)])
+def test_sharded_scorers_bit_equal_on_card(cuda, s, m):
+    """Every row's arithmetic is independent of M and of its place: the
+    shards' slices equal one call over all rows, bit for bit."""
+    rng = np.random.default_rng(s * m)
+    r = 200
+    z = torch.as_tensor(rng.normal(size=(m, r)).astype(np.float32),
+                        device=cuda)
+    w = torch.as_tensor(rng.normal(size=(r, r)).astype(np.float32),
+                        device=cuda)
+    a = torch.as_tensor(rng.normal(size=(3, r, r)).astype(np.float32),
+                        device=cuda)
+    mesh = make_sampler_mesh(devices=[cuda] * s)
+    assert torch.equal(bilinear_ops.bilinear_sharded(z, w, mesh),
+                       bilinear_ops.bilinear(z, w))
+    full = score_ops.score_all(z, a)
+    assert torch.equal(score_ops.score_all_sharded(z, a, mesh), full)
+    mx, arg = score_ops.score_argmax_sharded(z, a, mesh)
+    assert torch.equal(mx, full.max(dim=1).values)
+    assert torch.equal(arg, full.argmax(dim=1))
+
+
+def test_sharded_paths_on_card(cuda):
+    """On the card, meshes of 1 and 2 shards (both on this card) draw the
+    same as the unsharded kernels: the rejection sampler (the sharded
+    descent is torch operations, the unsharded one descend_score: on this
+    well-separated kernel no decision is a near tie), the MCMC engine, and
+    a meshed catalog whose tree stays bit-equal to the unsharded one."""
+    rng = np.random.default_rng(31415)
+    v = (rng.normal(size=(256, 4)) * 0.1).astype(np.float32)
+    b = (rng.normal(size=(256, 4)) * 0.1).astype(np.float32)
+    d = rng.normal(size=(4, 4)).astype(np.float32)
+    card = preprocess(v, b, d, block=4, device=cuda)
+    want = sample_batched_many(card, trandom.PRNGKey(0), 16, n_spec=4)
+    before = bilinear_ops.batched_launches
+    for s in (1, 2):
+        mesh = make_sampler_mesh(devices=[cuda] * s)
+        got = sample_batched_many(shard_sampler(card, mesh),
+                                  trandom.PRNGKey(0), 16, n_spec=4, mesh=mesh)
+        for name in ("items", "mask", "trials", "accepted"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert bilinear_ops.batched_launches > before
+
+    def drain(mesh):
+        eng = SamplerEngine(card, backend="mcmc", n_slots=3, mcmc_k=3,
+                            mcmc_burn_in=16, mcmc_thin=8, mesh=mesh)
+        for i in range(5):
+            eng.submit(SampleRequest(rid=i, seed=i))
+        return eng.run()
+
+    plain = drain(None)
+    for s in (1, 2):
+        out = drain(make_sampler_mesh(devices=[cuda] * s))
+        for i in range(5):
+            assert np.array_equal(out[i].items, plain[i].items), (s, i)
+
+    trees = []
+    for mesh in (None, make_sampler_mesh(devices=[cuda] * 2)):
+        cat = Catalog(v * 3, b * 3, d, block=4, staleness=1, device=cuda,
+                      mesh=mesh)
+        cat.update_items([3, 77, 200], v[:3] * 2, b[:3] * 2)
+        cat.delete_items([10, 130])
+        trees.append(gather_tree(cat._live_prop.tree))
+    assert torch.equal(trees[0].nodes, trees[1].nodes)
+    assert torch.equal(trees[0].W, trees[1].W)

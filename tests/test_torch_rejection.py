@@ -116,7 +116,9 @@ def test_log_det_ratio_matches_reference(golden_samplers):
 
 def test_unported_options_raise(golden_samplers):
     _, got = golden_samplers
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # mesh= is ported: a mesh without the sampler's "model" axis is the
+    # reference's configuration error
+    with pytest.raises(ValueError, match="'model' axis"):
         sample_batched_many(got, trandom.PRNGKey(0), 2, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sample_batched_many(got, trandom.PRNGKey(0), 2, observer=object())
