@@ -41,13 +41,30 @@ kernel against its plain PyTorch version on the card:
    ``torch.equal`` to a sharded rebuild and to the unsharded catalog's
    tree; 16 requests equal at S = 1 and 2) and 16 MCMC requests (S = 1
    and 2 equal) -> one ``{"sharded": ...}`` line;
-6. each kernel against its plain version at its path's shapes, on inputs
+6. the LM template's training path, with the NDPP phases' memory freed:
+   qwen3-1.7b at full width and depth (28 layers, d_model 2,048, GQA 16 /
+   8 heads of 128, vocab 151,936, bfloat16, 2.03 B parameters) from the
+   port's seeded init, AdamW with the reference defaults, ``lm_batch`` at
+   ``SHAPES["train_4k"]``'s sequence of 4,096 with its global batch of 256
+   cut to 2 for one card: one cold step, 3 timed ones and one under the
+   profiler; every loss finite, the first within 1.5 of ln(V), and the
+   flash kernels launched 2 x 28 times a step forward (remat runs each
+   layer's forward again in the backward) and 28 times backward -> one
+   ``{"train": ...}`` line (losses, cold and warm step ms, data ms apart,
+   tokens/s, MFU, the profiled step's device busy share and top kernels,
+   peak device GB, launches), and a plain witness at the same size: the
+   same seeded init and batches with ``mha_ref`` under autograd in place
+   of the flash kernels, step 0's loss, grad norm and every gradient leaf
+   on the same params against the kernels', then the witness's own
+   steps' losses and grad norms against the kernel run's;
+7. each kernel against its plain version at its path's shapes, on inputs
    the paths themselves produced (the main path's tree rows and first
    round's projectors and uniforms; the catalog's update batch; the greedy
    start's score matrices; the sharded descent's leaf blocks and
-   projectors; the catalog's rows and X), with times, bounds and launch
-   counts by path -> one ``{"kernels": [...]}`` line;
-7. the last line: ``{"ok": true, "device": {...}}``.
+   projectors; the catalog's rows and X; layer 0's q, k, v of a timed
+   train step and a seeded dO; planted faults must fail the attention
+   tolerance), with times, bounds and launch counts by path -> one ``{"kernels": [...]}`` line of eight entries;
+8. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero (an exception's traceback, or a FAIL line)
 before the last line: no GPU, a build or launch error, a parity miss, an
@@ -85,8 +102,13 @@ CAT_ROUNDS = 2             # rounds of the four batches: cold, then warm
 MCMC_K = 8                 # the main path's mean |Y| (7.92), rounded
 SHARD_COUNTS = (1, 2)      # the sharded phase's meshes
 SHARDED_REQUESTS = 16      # the sharded catalog and MCMC requests
+TRAIN_ARCH = "qwen3-1.7b"   # the LM template's train path, full width and depth
+TRAIN_SHAPE = "train_4k"    # sequence 4,096; its global batch of 256 ...
+TRAIN_BATCH = 2             # ... cut to 2 sequences for one card
+TRAIN_STEPS = 3             # timed steps, after one cold step
 DEVICE = "cuda"
-KERNEL_SOURCES = ("tree_sum", "spec_round", "mcmc_score", "bilinear")
+KERNEL_SOURCES = ("tree_sum", "spec_round", "mcmc_score", "bilinear",
+                  "flash_attn")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM data sheet, fp32 outside tensor cores
 BF16_FLOP_PER_S = 989e12   # H100 SXM data sheet, dense bf16 tensor cores
@@ -221,6 +243,7 @@ def valid_result(res, m: int, max_trials: int) -> bool:
 # ------------------------------------------------------------ launch counts
 def _count_owners():
     """(kernel name, module, attribute) of every kernel's launch count."""
+    from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.bilinear import ops as bilinear_ops
     from repro_torch.kernels.mcmc_score import ops as mcmc_score_ops
     from repro_torch.kernels.spec_round import ops as spec_ops
@@ -231,7 +254,9 @@ def _count_owners():
             ("gathered_block_grams", tree_sum_ops, "gathered_launches"),
             ("score_all", mcmc_score_ops, "launches"),
             ("bilinear_batched", bilinear_ops, "batched_launches"),
-            ("bilinear", bilinear_ops, "launches"))
+            ("bilinear", bilinear_ops, "launches"),
+            ("flash_attention", attn_ops, "launches"),
+            ("flash_attention_bwd", attn_ops, "bwd_launches"))
 
 
 def reset_counts() -> None:
@@ -1227,6 +1252,387 @@ def check_bilinear(sp, mesh, launches):
             "shape": {"M": m, "R": r}, "at_half_M": half, "bfloat16": bf16}
 
 
+# ------------------------------------------------- the LM template's train path
+def matmul_params(cfg) -> int:
+    """The parameters that enter a matrix product: all of them but an
+    untied token table, which is a gather forward and a scatter-add
+    backward (a tied one is also the unembedding, a product)."""
+    table = 0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model
+    return cfg.param_count() - table
+
+
+def train_flop(cfg, batch: int, seq: int) -> float:
+    """FLOP of one train step as MFU counts them: 6 N T for the parameter
+    products, N without an untied token table (forward and backward,
+    without remat's recompute), and three times the causal attention
+    forward, 4 B H D S(S+1)/2 a layer."""
+    tokens = batch * seq
+    attn_fwd = 4.0 * batch * cfg.n_heads * cfg.head_dim * seq * (seq + 1) / 2
+    return 6.0 * matmul_params(cfg) * tokens + 3.0 * cfg.n_layers * attn_fwd
+
+
+def run_train():
+    """qwen3-1.7b at full width and depth, bfloat16, AdamW with the
+    reference defaults, ``lm_batch`` at 2 x 4,096: one cold step,
+    TRAIN_STEPS timed ones, then one under ``torch.profiler``.  Layer 0's
+    attention inputs of the first timed step are recorded for the
+    kernels' parity phase."""
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.models.model import init_model
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    seq = SHAPES[TRAIN_SHAPE].seq_len
+    mha = attn_ops.mha
+    captured = []
+    recording_on = False
+
+    def recording(q, k, v, **kw):
+        if recording_on and not captured:
+            captured.append(tuple(x.detach().clone() for x in (q, k, v)))
+        return mha(q, k, v, **kw)
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=SEED, device=DEVICE)
+    ocfg = OptimizerConfig()
+    opt = make_optimizer(ocfg)
+    state = opt.init(dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step_fn = make_train_step(cfg, opt)
+    losses, gnorms, step_ms, data_ms = [], [], [], []
+    attn_ops.mha = recording
+    try:
+        for step in range(1 + TRAIN_STEPS):
+            recording_on = step == 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = lm_batch(cfg, SEED, step, TRAIN_BATCH, seq, device=DEVICE)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, state, metrics = step_fn(model, state, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            del batch
+            losses.append(loss)
+            gnorms.append(float(metrics["grad_norm"]))
+            data_ms.append((t1 - t0) * 1e3)
+            step_ms.append((t2 - t1) * 1e3)
+    finally:
+        attn_ops.mha = mha
+    # one more step under the profiler: device busy time and top kernels
+    batch = lm_batch(cfg, SEED, 1 + TRAIN_STEPS, TRAIN_BATCH, seq,
+                     device=DEVICE)
+    prof = profile_window(lambda: float(step_fn(model, state, batch)[2]["loss"]))
+    del batch
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    n_steps = 2 + TRAIN_STEPS
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"non-finite train loss or grad norm: {losses}, {gnorms}")
+    check(abs(losses[0] - math.log(cfg.vocab)) <= 1.5,
+          f"first loss {losses[0]} not within 1.5 of ln(V) = "
+          f"{math.log(cfg.vocab)}")
+    check(launches["flash_attention"] == 2 * cfg.n_layers * n_steps,
+          f"flash forward launched {launches['flash_attention']} times, not "
+          f"2 x {cfg.n_layers} a step (remat) over {n_steps} steps")
+    check(launches["flash_attention_bwd"] == cfg.n_layers * n_steps,
+          f"flash backward launched {launches['flash_attention_bwd']} times, "
+          f"not {cfg.n_layers} a step over {n_steps} steps")
+    check(len(captured) == 1, "layer 0's attention inputs were not recorded")
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    witness = train_witness(cfg, seq, ocfg, losses, gnorms)
+    warm_ms = float(np.mean(step_ms[1:]))
+    flop = train_flop(cfg, TRAIN_BATCH, seq)
+    emit({"train": {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+        "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+        "params": cfg.param_count(), "dtype": cfg.dtype,
+        "batch": TRAIN_BATCH, "seq_len": seq,
+        "reduced": [f"global batch {SHAPES[TRAIN_SHAPE].global_batch} -> "
+                    f"{TRAIN_BATCH} sequences (one card)"],
+        "optimizer": {"name": ocfg.name, "lr": ocfg.lr, "b1": ocfg.b1,
+                      "b2": ocfg.b2, "grad_clip": ocfg.grad_clip},
+        "remat": cfg.remat, "init_s": init_s,
+        "losses": losses, "grad_norms": gnorms,
+        "step_ms_cold": step_ms[0], "step_ms": step_ms[1:],
+        "step_ms_warm_mean": warm_ms, "data_ms": data_ms,
+        "tokens_per_s": TRAIN_BATCH * seq / (warm_ms / 1e3),
+        "flop_per_step": flop,
+        "mfu": flop / (warm_ms / 1e3 * BF16_FLOP_PER_S),
+        "matmul_params": matmul_params(cfg),
+        "mfu_counts": "(6 N T + 3 x causal attention forward) / (warm step "
+                      "s x 989e12), N = matmul_params (the untied token "
+                      "table, a gather, left out); remat's recompute not "
+                      "counted",
+        "step_profile": dict(prof, device_busy_share=prof["device_ms"] /
+                             prof["wall_ms"]),
+        "peak_device_gb": peak / 1e9, "launches": launches,
+        "plain_witness": witness}})
+    check(witness["ok"], f"the train run parted from its plain witness: "
+                         f"{witness}")
+    return captured[0], launches
+
+
+#: the plain witness's tolerances (bfloat16 training, two attention
+#: implementations whose outputs differ by bf16 roundings): step 0 on the
+#: same params, then the witness's own steps.  At qwen3-1.7b's full size
+#: the H100 read at most a third of each (loss 8e-5, grad norm 5e-5, leaf
+#: 9.6e-3, step loss 1.6e-4, step grad norm 1.0e-3); a fault in a layer's
+#: attention gradients moves its leaves by O(1)
+WITNESS_LOSS_ABS = 1e-3     # step 0's loss
+WITNESS_GNORM_REL = 1e-3    # step 0's grad norm
+WITNESS_LEAF_REL = 3e-2     # step 0's ||g_kernel - g_plain|| / ||g_plain||
+WITNESS_STEP_REL = 2e-3     # each step's loss, relative
+WITNESS_STEP_GNORM_REL = 1e-2  # each step's grad norm, relative
+
+
+def train_witness(cfg, seq, ocfg, losses, gnorms) -> dict:
+    """The train run again with the plain attention (``mha_ref`` under
+    autograd) in place of the flash kernels, from the same seeded init and
+    batches.  Step 0 on the same params and batch: the loss, the grad norm
+    and every gradient leaf of the kernels against the plain path's.  Then
+    the plain path's own 1 + TRAIN_STEPS AdamW steps: their losses and
+    grad norms against the kernel run's.  The kernel launches here are
+    comparisons, outside every counted window."""
+    import torch
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention import ref as attn_ref
+    from repro_torch.models.model import forward_hidden, init_model, lm_loss
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.steps import make_train_step
+
+    mha = attn_ops.mha
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=SEED, device=DEVICE)
+    params = dict(model.named_parameters())
+    batch = lm_batch(cfg, SEED, 0, TRAIN_BATCH, seq, device=DEVICE)
+
+    def loss_grads():
+        h, _ = forward_hidden(cfg, model, batch["tokens"])
+        loss = lm_loss(cfg, model, h, batch["labels"])
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return float(loss.detach()), grads
+
+    def norm(g):
+        return float(torch.linalg.vector_norm(g.float()))
+
+    k_loss, k_grads = loss_grads()
+    try:
+        attn_ops.mha = attn_ref.mha_ref
+        p_loss, p_grads = loss_grads()
+        leaf_rel = {name: norm(a.float() - b.float()) / max(norm(b), 1e-30)
+                    for name, a, b in zip(params, k_grads, p_grads)}
+        k_gnorm = math.sqrt(sum(norm(g) ** 2 for g in k_grads))
+        p_gnorm = math.sqrt(sum(norm(g) ** 2 for g in p_grads))
+        del k_grads, p_grads, batch
+        opt = make_optimizer(ocfg)
+        state = opt.init(params)
+        step_fn = make_train_step(cfg, opt)
+        w_losses, w_gnorms = [], []
+        for step in range(len(losses)):
+            batch = lm_batch(cfg, SEED, step, TRAIN_BATCH, seq, device=DEVICE)
+            _, state, metrics = step_fn(model, state, batch)
+            w_losses.append(float(metrics["loss"]))
+            w_gnorms.append(float(metrics["grad_norm"]))
+            del batch
+    finally:
+        attn_ops.mha = mha
+    del model, state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = sorted(leaf_rel.items(), key=lambda kv: -kv[1])[:5]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(w_losses, losses)]
+    gnorm_rel = [abs(a - b) / abs(b) for a, b in zip(w_gnorms, gnorms)]
+    ok = (abs(k_loss - p_loss) <= WITNESS_LOSS_ABS
+          and abs(k_gnorm - p_gnorm) <= WITNESS_GNORM_REL * p_gnorm
+          and worst[0][1] <= WITNESS_LEAF_REL
+          and max(loss_rel) <= WITNESS_STEP_REL
+          and max(gnorm_rel) <= WITNESS_STEP_GNORM_REL)
+    return {"attention": "mha_ref under autograd",
+            "step0": {"loss_kernel": k_loss, "loss_plain": p_loss,
+                      "grad_norm_kernel": k_gnorm,
+                      "grad_norm_plain": p_gnorm,
+                      "leaves": len(leaf_rel),
+                      "leaf_rel_err_worst5": worst,
+                      "leaf_rel_err_median": float(np.median(
+                          list(leaf_rel.values())))},
+            "losses": w_losses, "grad_norms": w_gnorms,
+            "loss_rel_err": loss_rel, "grad_norm_rel_err": gnorm_rel,
+            "tolerance": {"step0_loss_abs": WITNESS_LOSS_ABS,
+                          "step0_grad_norm_rel": WITNESS_GNORM_REL,
+                          "step0_leaf_rel": WITNESS_LEAF_REL,
+                          "step_loss_rel": WITNESS_STEP_REL,
+                          "step_grad_norm_rel": WITNESS_STEP_GNORM_REL},
+            "s": time.perf_counter() - t0, "ok": ok}
+
+
+def _attn_bytes_flop(q, k, backward: bool):
+    """Bytes the call must move (each input read once, each output written
+    once) and the causal FLOP these shapes need: 4 D per live (query, key)
+    pair forward, 2.5 times that backward (dV, dP, dQ, dK and the
+    recomputed scores).  The forward writes O and, for bfloat16, O in
+    float32, which the backward reads."""
+    b, h, s, d = q.shape
+    qo = q.numel() * q.element_size()
+    o32 = q.numel() * 4
+    kv = 2 * k.numel() * k.element_size()
+    lse = b * h * s * 4
+    pairs = b * h * s * (s + 1) / 2
+    if not backward:
+        # read q, k, v; write O, O in float32 (bf16 only), lse
+        return (2 * qo + kv + lse + (o32 if q.element_size() < 4 else 0),
+                4.0 * d * pairs)
+    # read q, k, v, O in float32, dO, lse; write dq, dk, dv
+    return 3 * qo + o32 + kv + lse + kv, 10.0 * d * pairs
+
+
+def check_flash_attention(qkv, launches):
+    """Kernel 7's forward on layer 0's q, k, v of a timed train step
+    against the plain version in float32 on the same bf16 inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import ops, ref
+
+    q, k, v = qkv
+    scale = q.shape[-1] ** -0.5
+    s = q.shape[2]
+    o, lse, o32 = ops.flash_forward(q, k, v, True, scale)
+    rounded = bool(torch.equal(o, o32.to(o.dtype)))
+    want = ref.mha_ref(q.float(), k.float(), v.float())
+    want_lse = ref.mha_lse_ref(q, k, v)
+    torch.cuda.synchronize()
+    err = float((o.float() - want).abs().max())
+    rel = err / float(want.abs().max())
+    excess = ref.bf16_excess(o, want)
+    lse_err = float((lse - want_lse).abs().max())
+    # planted faults the tolerance must reject
+    late_zero = o.clone()
+    late_zero[:, :, s // 2:] = 0
+    next_head_v = ops.flash_forward(q, k, v.roll(-1, dims=1), True, scale)[0]
+    mutants = {"O zero for rows >= S/2": ref.bf16_excess(late_zero, want),
+               "V of kv head (kh + 1) % KVH": ref.bf16_excess(next_head_v,
+                                                              want)}
+    del late_zero, next_head_v
+    ok = (excess <= 1 and lse_err <= 1e-4 and rounded
+          and all(x > 1 for x in mutants.values()))
+    del want, want_lse, o32
+    ms = cuda_ms(lambda: ops.flash_forward(q, k, v, True, scale), reps=10)
+    plain_ms = cuda_ms(lambda: ref.mha_ref(q, k, v), reps=3)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), reps=10)
+    n_bytes, n_flop = _attn_bytes_flop(q, k, backward=False)
+    bms, by = bound(n_bytes, n_flop, BF16_FLOP_PER_S)
+    b, h, s, d = q.shape
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attn.cu",
+            "replaces": "src/repro/kernels/attention/flash.py:87",
+            "launches": launches, "max_abs_err": err,
+            "max_err_over_max_out": rel, "excess": excess,
+            "lse_max_abs_err": lse_err, "mutants_excess": mutants,
+            "o_is_float32_o_rounded": rounded,
+            "tolerance": "against the plain version in float32 on the same "
+                         "bf16 inputs, every element of O within 2^-8 of "
+                         "its |value| + 2^-8 of its row's max + 2^-16 of "
+                         "the global max (excess <= 1, ref.bf16_excess); "
+                         "log-sum-exp within 1e-4; O equal to the kept "
+                         "float32 O rounded; each planted fault rejected "
+                         "(excess > 1)",
+            "ok": ok, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": library_ms,
+            "library": "F.scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True)",
+            "shape": {"B": b, "H": h, "KVH": k.shape[1], "S": s, "D": d,
+                      "dtype": str(q.dtype).replace("torch.", "")}}
+
+
+def check_flash_attention_bwd(qkv, launches):
+    """Kernel 7b, the backward, on the same inputs and a dO drawn from a
+    seed, against autograd of the plain version in float32."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import ops, ref
+
+    q, k, v = qkv
+    scale = q.shape[-1] ** -0.5
+    gen = torch.Generator(device=q.device)
+    gen.manual_seed(SEED)
+    dout = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    _, lse, o32 = ops.flash_forward(q, k, v, True, scale)
+    dq, dk, dv = ops.flash_backward(q, k, v, o32, lse, dout, True, scale)
+    qf, kf, vf = (x.float().requires_grad_(True) for x in (q, k, v))
+    want = torch.autograd.grad(ref.mha_ref(qf, kf, vf), (qf, kf, vf),
+                               dout.float())
+    torch.cuda.synchronize()
+    errs, excess = {}, {}
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        errs[name] = float((got.float() - w).abs().max()) / float(
+            w.abs().max())
+        excess[name] = ref.bf16_excess(got, w)
+    # planted faults the tolerance must reject
+    s = q.shape[2]
+    zq, zk = dq.clone(), dk.clone()
+    zq[:, :, s // 2:] = 0
+    zk[:, :, s // 2:] = 0
+    nq, nk, _ = ops.flash_backward(q, k, v.roll(-1, dims=1), o32, lse,
+                                   dout, True, scale)
+    mutants = {
+        "dq zero for rows >= S/2": ref.bf16_excess(zq, want[0]),
+        "dk zero for keys >= S/2": ref.bf16_excess(zk, want[1]),
+        "dv of kv head (kh + 1) % KVH": ref.bf16_excess(dv.roll(-1, dims=1),
+                                                        want[2]),
+        "dq from V of the next kv head": ref.bf16_excess(nq, want[0]),
+        "dk from V of the next kv head": ref.bf16_excess(nk, want[1])}
+    del zq, zk, nq, nk
+    ok = (max(excess.values()) <= 1
+          and all(x > 1 for x in mutants.values()))
+    ms = cuda_ms(lambda: ops.flash_backward(q, k, v, o32, lse, dout, True,
+                                            scale), reps=5)
+    qp, kp, vp = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = ref.mha_ref(qp, kp, vp)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (qp, kp, vp), dout, retain_graph=True), reps=3)
+    del out
+    lib = F.scaled_dot_product_attention(qp, kp, vp, is_causal=True,
+                                         enable_gqa=True)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        lib, (qp, kp, vp), dout, retain_graph=True), reps=10)
+    del lib
+    n_bytes, n_flop = _attn_bytes_flop(q, k, backward=True)
+    bms, by = bound(n_bytes, n_flop, BF16_FLOP_PER_S)
+    b, h, s, d = q.shape
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attn.cu",
+            "replaces": "src/repro/kernels/attention/flash.py:87 (the TPU "
+                        "kernel has no backward; this is the port's own)",
+            "launches": launches, "max_abs_err": max(errs.values()),
+            "max_err_over_max_grad": errs, "excess": excess,
+            "mutants_excess": mutants,
+            "tolerance": "against autograd of the plain version in float32, "
+                         "every element of dq, dk and dv within 2^-8 of its "
+                         "|value| + 2^-8 of its row's max (a query's for "
+                         "dq, a key's for dk, dv) + 2^-16 of the global max "
+                         "(excess <= 1, ref.bf16_excess); each planted fault "
+                         "rejected (excess > 1)",
+            "ok": ok, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": library_ms,
+            "library": "autograd backward of F.scaled_dot_product_attention",
+            "shape": {"B": b, "H": h, "KVH": k.shape[1], "S": s, "D": d,
+                      "dtype": str(q.dtype).replace("torch.", "")}}
+
+
 # --------------------------------------------------------------------- main
 def main() -> int:
     try:
@@ -1310,6 +1716,16 @@ def main() -> int:
         for n in SHARD_COUNTS)
     sharded["launches"] = by_path["sharded"]
     emit({"sharded": sharded})
+    del sp, mesh2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    qkv, by_path["train"] = run_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    entries.append(check_flash_attention(qkv, None))
+    entries.append(check_flash_attention_bwd(qkv, None))
+    del qkv
     for e in entries:
         e["launches_by_path"] = {p: c[e["name"]] for p, c in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())

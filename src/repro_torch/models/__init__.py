@@ -1,1 +1,3 @@
-"""Model-level helpers of the port (only the unsharded row gather so far)."""
+"""Model-level code of the port: the LM template (``config``, ``layers``,
+``model``; dense families) and the NDPP samplers' row sharding
+(``sharding``)."""

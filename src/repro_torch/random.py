@@ -107,24 +107,68 @@ def random_bits(keys: torch.Tensor, shape: Shape) -> torch.Tensor:
     return _hash_counts(keys, n).reshape(tuple(keys.shape[:-1]) + shape)
 
 
-def uniform(keys: torch.Tensor, shape: Shape = (), minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` (float32) per key: the top 23 bits of each
-    word become the mantissa of a float in [1, 2), minus 1, then scaled
+def bits_at(key: torch.Tensor, n: int, pos: torch.Tensor) -> torch.Tensor:
+    """The words at flat positions ``pos`` (int64, each < n) of
+    ``random_bits(key, (n,))`` for one key (2,), without the other
+    positions: position p < half = ceil(n/2) is the first output word of
+    the counter pair (p, half + p), a later p the second word of
+    (p - half, p); for odd n the last pair's second counter is 0.  So a
+    large draw can be made in slices, each bit-equal to the whole."""
+    half = (n + 1) // 2
+    first = pos < half
+    x1 = torch.where(first, pos, pos - half)
+    x2 = torch.where(first, pos + half, pos)
+    if n % 2:
+        x2 = torch.where(x2 == n, torch.zeros_like(x2), x2)
+    a, b = threefry2x32(key[0], key[1], x1, x2)
+    return torch.where(first, a, b)
+
+
+def uniform_from_bits(bits: torch.Tensor, minval: float = 0.0,
+                      maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform``'s float32 map of 32-bit words: the top 23
+    bits become the mantissa of a float in [1, 2), minus 1, then scaled
     into [minval, maxval) in float32 exactly as the reference does."""
-    bits = random_bits(keys, shape)
     fbits = (bits >> (32 - _F32_NMANT)) | _ONE_F32_BITS
     floats = fbits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=keys.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=keys.device)
+    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
-def gumbel(keys: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
-    """``jax.random.gumbel`` in its default "low" mode:
+def uniform(keys: torch.Tensor, shape: Shape = (), minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` (float32) per key (``uniform_from_bits`` of
+    the key's ``random_bits``)."""
+    return uniform_from_bits(random_bits(keys, shape), minval, maxval)
+
+
+def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.gumbel``'s map ("low" mode) of 32-bit words:
     ``-log(-log(u))`` with ``u`` uniform on [tiny, 1)."""
-    u = uniform(keys, shape, minval=_F32_TINY, maxval=1.0)
+    u = uniform_from_bits(bits, minval=_F32_TINY, maxval=1.0)
     return -torch.log(-torch.log(u))
+
+
+def gumbel(keys: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+    """``jax.random.gumbel`` in its default "low" mode."""
+    return gumbel_from_bits(random_bits(keys, shape))
+
+
+def bernoulli(keys: torch.Tensor, p: float, shape: Shape = ()) -> torch.Tensor:
+    """``jax.random.bernoulli`` ("low" mode): ``uniform < p`` in float32."""
+    return uniform(keys, shape) < torch.tensor(p, dtype=torch.float32,
+                                               device=keys.device)
+
+
+def normal(keys: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+    """``jax.random.normal`` (float32): ``sqrt(2) erfinv(u)`` with ``u``
+    uniform on (-1, 1).  ``torch.erfinv`` and XLA's may differ in the last
+    bits, so draws agree to float32 rounding, not bit for bit."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(keys, shape, minval=lo, maxval=1.0)
+    return torch.erfinv(u) * torch.tensor(np.sqrt(2), dtype=torch.float32,
+                                          device=keys.device)
 
 
 def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:

@@ -327,3 +327,129 @@ def test_sharded_paths_on_card(cuda):
         trees.append(gather_tree(cat._live_prop.tree))
     assert torch.equal(trees[0].nodes, trees[1].nodes)
     assert torch.equal(trees[0].W, trees[1].W)
+
+
+# ------------------------------------------------- flash attention (kernel 7)
+_FLASH_CASES = [  # (Sq, Sk, D, g, causal): S 200 and 100 are ragged
+    (128, 128, 64, 1, True), (200, 200, 80, 2, True),
+    (384, 384, 128, 2, True), (1024, 1024, 128, 2, True),
+    (200, 200, 256, 3, True), (1024, 1024, 80, 1, True),
+    (128, 128, 256, 1, False), (384, 384, 64, 3, False),
+    (200, 200, 128, 3, False), (100, 200, 64, 2, True),
+    (128, 384, 256, 2, True)]
+
+
+@pytest.mark.parametrize("sq,sk,d,g,causal", _FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(cuda, sq, sk, d, g, causal, dtype):
+    """Forward (O and the row log-sum-exp) and backward (dq, dk, dv)
+    against the plain version in float32 on the same inputs: within 2e-5
+    of each output's max |.| in float32; in bfloat16 each of O, dq, dk and
+    dv within ``bf16_excess``'s per-element, per-row tolerance (the
+    chip_smoke tolerance), the log-sum-exp within 1e-4."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention.ref import (bf16_excess, mha_lse_ref,
+                                                   mha_ref)
+
+    rng = np.random.default_rng(sq * 7 + d * 3 + g)
+    b, kvh = 2, 2
+    h = kvh * g
+    mk = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                                    device=cuda).to(dtype)
+    q, k, v = mk(b, h, sq, d), mk(b, kvh, sk, d), mk(b, kvh, sk, d)
+    dout = mk(b, h, sq, d)
+    f0, b0 = attn_ops.launches, attn_ops.bwd_launches
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o = attn_ops.mha(qg, kg, vg, causal=causal)
+    dq, dk, dv = torch.autograd.grad(o, (qg, kg, vg), dout)
+    o = o.detach()
+    o1, lse, o32 = attn_ops.flash_forward(q, k, v, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o) and torch.equal(o32.to(dtype), o)
+    assert (attn_ops.launches, attn_ops.bwd_launches) == (f0 + 2, b0 + 1)
+    assert o.dtype == dq.dtype == dk.dtype == dv.dtype == dtype
+
+    qf, kf, vf = (t.float().requires_grad_(True) for t in (q, k, v))
+    want = mha_ref(qf, kf, vf, causal=causal)
+    wq, wk, wv = torch.autograd.grad(want, (qf, kf, vf), dout.float())
+    want = want.detach()
+    wl = mha_lse_ref(q.float(), k.float(), v.float(), causal=causal)
+    f32 = dtype == torch.float32
+    for name, got, ref in (("o", o, want), ("dq", dq, wq), ("dk", dk, wk),
+                           ("dv", dv, wv)):
+        if f32:
+            err = float((got.float() - ref).abs().max())
+            assert err <= 2e-5 * float(ref.abs().max()), (name, err)
+        else:
+            assert bf16_excess(got, ref) <= 1, (name, bf16_excess(got, ref))
+    assert float((lse - wl).abs().max()) <= 1e-4
+
+
+def test_flash_attention_refuses_what_it_cannot_take(cuda):
+    from repro_torch.kernels.attention import ops as attn_ops
+
+    z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        attn_ops.mha(z(1, 2, 8, 12), z(1, 2, 8, 12), z(1, 2, 8, 12))
+    with pytest.raises(ValueError, match="Sq <= Sk"):
+        attn_ops.mha(z(1, 2, 16, 64), z(1, 2, 8, 64), z(1, 2, 8, 64))
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        attn_ops.mha(z(1, 2, 8, 64), z(1, 2, 8, 64, dt=torch.bfloat16),
+                     z(1, 2, 8, 64))
+    with pytest.raises(ValueError, match="O in float32"):
+        attn_ops.flash_backward(*(z(1, 2, 8, 64, dt=torch.bfloat16),) * 4,
+                                z(1, 2, 8), z(1, 2, 8, 64), True, 1.0)
+    with pytest.raises(NotImplementedError, match="serving slice"):
+        attn_ops.mha(z(1, 2, 1, 64), z(1, 2, 8, 64), z(1, 2, 8, 64),
+                     kv_len=torch.tensor([8], device=cuda))
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One AdamW step of a float32 smoke LM (head_dim 64, GQA g = 2) on the
+    card, where attention runs the flash kernels forward and backward,
+    against the same step on the CPU (the plain versions): loss and grad
+    norm within 1e-4 relative, every gradient within 1e-3 of its max |.|
+    (float32 sums in other orders through 4 layers and the loss); flash
+    launches 2 x 4 forward (remat) and 4 backward."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.models.model import init_model
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.steps import make_train_step
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"), n_layers=4,
+                              head_dim=64, attn_chunk=64)
+    cpu_model = init_model(cfg, seed=3, device="cpu")
+    card_model = lm_params_from_numpy(cfg, lm_params_to_numpy(cfg, cpu_model),
+                                      cuda)
+    opt = make_optimizer(OptimizerConfig())
+    grads = {}
+    cpu_batch = lm_batch(cfg, 0, 0, 2, 256, device="cpu")
+
+    def run(model, dev):
+        params = dict(model.named_parameters())
+        state = opt.init(params)
+        batch = {k: t.to(dev) for k, t in cpu_batch.items()}
+        orig = opt.update
+
+        def spy(g, st, p):
+            grads[dev.type] = {k: t.float().cpu() for k, t in g.items()}
+            return orig(g, st, p)
+
+        step = make_train_step(cfg, opt._replace(update=spy))
+        _, _, metrics = step(model, state, batch)
+        return {k: float(t) for k, t in metrics.items()}
+
+    want = run(cpu_model, torch.device("cpu"))
+    f0, b0 = attn_ops.launches, attn_ops.bwd_launches
+    got = run(card_model, cuda)
+    torch.cuda.synchronize()
+    assert attn_ops.launches - f0 == 2 * cfg.n_layers
+    assert attn_ops.bwd_launches - b0 == cfg.n_layers
+    for k in ("loss", "grad_norm"):
+        assert got[k] == pytest.approx(want[k], rel=1e-4), k
+    for k, ref in grads["cpu"].items():
+        err = float((grads["cuda"][k] - ref).abs().max())
+        assert err <= 1e-3 * float(ref.abs().max()) + 1e-12, (k, err)

@@ -1,0 +1,282 @@
+"""The port's LM template training path (``repro_torch.models``, ``.data.lm``,
+``.train``) against the reference, on the CPU, with the reference's
+parameters carried across (``convert.lm_params_from_numpy``).
+
+The smoke configs of qwen3-1.7b (GQA, qk-norm) and olmo-1b (non-parametric
+LayerNorm, MHA) run in float32 with ``attn_chunk`` lowered below the
+sequence, so attention takes the query-chunked branch (the flash kernel's
+place on the card).  Tolerances, for float32 sums in other orders:
+hidden states and loss within 1e-5 relative (2e-5 of max |h| absolute);
+gradients, AdamW moments and updated parameters within 1e-4 of each
+leaf's max |.|.  ``lm_batch``'s tokens and labels are equal under the
+reference's golden key layout.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import (SHAPES as R_SHAPES, get_config as r_get_config,
+                           get_smoke_config as r_smoke, input_specs as r_specs,
+                           list_archs)
+from repro.data.lm import lm_batch as r_lm_batch
+from repro.models import forward_hidden as r_forward_hidden
+from repro.models import init_model as r_init_model
+from repro.models import lm_loss as r_lm_loss
+from repro.models.model import layer_descriptors as r_layer_descriptors
+from repro.train.optimizer import OptimizerConfig as ROptConfig
+from repro.train.optimizer import make_optimizer as r_make_optimizer
+from repro.train.steps import make_train_step as r_make_train_step
+from repro_torch import random as trandom
+from repro_torch.configs import SHAPES, get_config, get_smoke_config, input_specs
+from repro_torch.convert import (lm_grads_to_numpy, lm_params_from_numpy,
+                                 lm_params_to_numpy)
+from repro_torch.data import lm as tlm
+from repro_torch.models.model import (LM, forward_hidden, layer_descriptors,
+                                      lm_loss)
+from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+from repro_torch.train.steps import make_train_step
+
+from _torch_port import golden_key_layout
+
+ARCHS = ["qwen3-1.7b", "olmo-1b"]
+SEQ, BATCH, CHUNK = 64, 4, 32
+
+
+def _cfgs(arch, **kw):
+    kw.setdefault("attn_chunk", CHUNK)
+    return (dataclasses.replace(r_smoke(arch), **kw),
+            dataclasses.replace(get_smoke_config(arch), **kw))
+
+
+def _setup(arch, **kw):
+    rcfg, tcfg = _cfgs(arch, **kw)
+    params, _ = r_init_model(rcfg, jax.random.PRNGKey(0))
+    model = lm_params_from_numpy(tcfg, jax.tree.map(np.asarray, params),
+                                 "cpu")
+    batch = r_lm_batch(rcfg, 0, 0, BATCH, SEQ)
+    tbatch = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+    return rcfg, tcfg, params, model, batch, tbatch
+
+
+def _leaves_close(want_tree, got_tree, tol=1e-4):
+    assert jax.tree.structure(want_tree) == jax.tree.structure(got_tree)
+    for w, g in zip(jax.tree.leaves(want_tree), jax.tree.leaves(got_tree)):
+        w = np.asarray(w, np.float32)
+        assert w.shape == g.shape
+        err = np.abs(w - g).max()
+        assert err <= tol * max(np.abs(w).max(), 1e-30), err
+
+
+# ----------------------------------------------------------------- configs
+@pytest.mark.parametrize("arch", list_archs())
+def test_configs_and_descriptors_equal(arch):
+    for rc, tc in ((r_get_config(arch), get_config(arch)),
+                   (r_smoke(arch), get_smoke_config(arch))):
+        assert dataclasses.asdict(rc) == dataclasses.asdict(tc)
+        assert r_layer_descriptors(rc) == layer_descriptors(tc)
+        assert rc.param_count() == tc.param_count()
+        assert rc.active_param_count() == tc.active_param_count()
+        assert str(tc.activation_dtype) == f"torch.{rc.dtype}"
+        for name in R_SHAPES:
+            want = {k: (v.shape, str(v.dtype))
+                    for k, v in r_specs(rc, R_SHAPES[name]).items()}
+            got = {k: (s, str(d).replace("torch.", ""))
+                   for k, (s, d) in input_specs(tc, SHAPES[name]).items()}
+            assert want == got
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mamba2-1.3b",
+                                  "jamba-1.5-large-398b",
+                                  "llama4-maverick-400b-a17b"])
+def test_unported_families_raise_at_construction(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        LM(get_smoke_config(arch), None, "cpu")
+
+
+# ------------------------------------------------------- forward and loss
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_loss_and_grads_match(arch):
+    rcfg, tcfg, params, model, batch, tbatch = _setup(arch)
+
+    def f(p):
+        h, _ = r_forward_hidden(rcfg, p, batch["tokens"])
+        return r_lm_loss(rcfg, p, h, batch["labels"]), h
+
+    (want_loss, want_h), want_g = jax.value_and_grad(f, has_aux=True)(params)
+    h, _ = forward_hidden(tcfg, model, tbatch["tokens"])
+    loss = lm_loss(tcfg, model, h, tbatch["labels"])
+    want_h = np.asarray(want_h)
+    assert np.abs(h.detach().numpy() - want_h).max() <= \
+        2e-5 * np.abs(want_h).max()
+    assert float(loss.detach()) == pytest.approx(float(want_loss), rel=1e-5)
+    names = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(names.values()))
+    _leaves_close(jax.tree.map(np.asarray, want_g),
+                  lm_grads_to_numpy(tcfg, dict(zip(names, grads))))
+
+
+def test_mrope_forward_matches():
+    """qwen2-vl's M-RoPE: three position streams (temporal, height, width)
+    driving sections of the frequency slots, with frontend embeddings."""
+    rcfg, tcfg, params, model, batch, tbatch = _setup("qwen2-vl-7b")
+    rng = np.random.default_rng(5)
+    pos = rng.integers(0, 50, (3, BATCH, SEQ)).astype(np.int32)
+    want, _ = r_forward_hidden(rcfg, params, batch["tokens"],
+                               positions=jnp.asarray(pos),
+                               input_embeds=batch["input_embeds"])
+    got, _ = forward_hidden(tcfg, model, tbatch["tokens"],
+                            positions=torch.from_numpy(pos),
+                            input_embeds=tbatch["input_embeds"])
+    want = np.asarray(want)
+    assert np.abs(got.detach().numpy() - want).max() <= \
+        2e-5 * np.abs(want).max()
+
+
+# ------------------------------------------------------------ train steps
+def _ref_steps(rcfg, params, n, grad_accum=1):
+    opt = r_make_optimizer(ROptConfig())
+    st = opt.init(params)
+    step = jax.jit(r_make_train_step(rcfg, opt, grad_accum=grad_accum))
+    metrics = []
+    for i in range(n):
+        params, st, m = step(params, st, r_lm_batch(rcfg, 0, i, BATCH, SEQ))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return params, st, metrics
+
+
+def _port_steps(rcfg, tcfg, model, n, grad_accum=1):
+    opt = make_optimizer(OptimizerConfig())
+    st = opt.init(dict(model.named_parameters()))
+    step = make_train_step(tcfg, opt, grad_accum=grad_accum)
+    metrics = []
+    for i in range(n):
+        batch = {k: torch.from_numpy(np.array(v))
+                 for k, v in r_lm_batch(rcfg, 0, i, BATCH, SEQ).items()}
+        model, st, m = step(model, st, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return model, st, metrics
+
+
+def _check_steps(arch, n, grad_accum=1):
+    rcfg, tcfg, params, model, _, _ = _setup(arch)
+    want_p, want_st, want_m = _ref_steps(rcfg, params, n, grad_accum)
+    model, st, got_m = _port_steps(rcfg, tcfg, model, n, grad_accum)
+    for w, g in zip(want_m, got_m):
+        for k in ("loss", "grad_norm"):
+            assert g[k] == pytest.approx(w[k], rel=1e-5), k
+    _leaves_close(jax.tree.map(np.asarray, want_p),
+                  lm_params_to_numpy(tcfg, model))
+    for k in ("m", "v"):
+        _leaves_close(jax.tree.map(np.asarray, want_st[k]),
+                      lm_grads_to_numpy(tcfg, st[k]))
+    assert int(st["step"]) == int(want_st["step"]) == n
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_one_adamw_step_matches(arch):
+    _check_steps(arch, 1)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_grad_accum_matches(arch):
+    _check_steps(arch, 1, grad_accum=2)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_three_steps_match(arch):
+    _check_steps(arch, 3)
+
+
+@pytest.mark.parametrize("ocfg", [
+    dict(name="adamw", weight_decay=0.1),
+    dict(name="adamw", grad_compression="bf16", moment_dtype="bfloat16"),
+    dict(name="adamw", grad_compression="int8", grad_clip=0.0),
+    dict(name="adafactor", weight_decay=0.01)], ids=lambda d: "-".join(
+        f"{v}" for v in d.values()))
+def test_optimizers_match(ocfg):
+    """Two updates of every optimizer variant on the same float32 params
+    and grads (a matrix, a stacked 3-D leaf, a vector), against the
+    reference's: params and state within 1e-5 of each leaf's max |.|."""
+    rng = np.random.default_rng(4)
+    shapes = {"w": (6, 5), "stack": (3, 4, 7), "b": (9,)}
+    params = {k: rng.normal(size=s).astype(np.float32)
+              for k, s in shapes.items()}
+    grads = [{k: rng.normal(size=s).astype(np.float32) * 3
+              for k, s in shapes.items()} for _ in range(2)]
+    ropt = r_make_optimizer(ROptConfig(**ocfg))
+    topt = make_optimizer(OptimizerConfig(**ocfg))
+    rp = {k: jnp.asarray(v) for k, v in params.items()}
+    rst = ropt.init(rp)
+    tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    tst = topt.init(tp)
+    for g in grads:
+        rp, rst = ropt.update({k: jnp.asarray(v) for k, v in g.items()},
+                              rst, rp)
+        tp, tst = topt.update({k: torch.from_numpy(v) for k, v in g.items()},
+                              tst, tp)
+    to_np = lambda tree: jax.tree.map(
+        lambda x: np.asarray(x.float() if isinstance(x, torch.Tensor) else x,
+                             np.float32), tree)
+    _leaves_close(to_np(rp), to_np(tp), tol=1e-5)
+    _leaves_close(to_np({k: v for k, v in rst.items() if k != "step"}),
+                  to_np({k: v for k, v in tst.items() if k != "step"}),
+                  tol=1e-5)
+    assert int(tst["step"]) == int(rst["step"]) == 2
+
+
+# --------------------------------------------------------------------- data
+@pytest.mark.parametrize("arch,seed,step,batch,seq,host,n_hosts", [
+    ("qwen3-1.7b", 0, 0, 4, 64, 0, 1), ("olmo-1b", 3, 7, 2, 33, 0, 1),
+    ("smollm-360m", 1, 2, 4, 16, 1, 2), ("qwen2-vl-7b", 0, 1, 2, 32, 0, 1)])
+def test_lm_batch_equals_reference(arch, seed, step, batch, seq, host,
+                                   n_hosts):
+    cfg_r, cfg_t = r_smoke(arch), get_smoke_config(arch)
+    with golden_key_layout():
+        want = r_lm_batch(cfg_r, seed, step, batch, seq, host, n_hosts)
+        got = tlm.lm_batch(cfg_t, seed, step, batch, seq, host, n_hosts,
+                           device="cpu")
+    assert set(want) == set(got)
+    for k in ("tokens", "labels"):
+        assert got[k].dtype == torch.int32
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    if "input_embeds" in want:
+        # torch.erfinv and XLA's agree to float32 rounding, not bit for bit
+        np.testing.assert_allclose(got["input_embeds"].numpy(),
+                                   np.asarray(want["input_embeds"]),
+                                   rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("rows,vocab", [(9, 512), (12, 77)])
+def test_categorical_slices_equal_the_whole_draw(monkeypatch, rows, vocab):
+    """The Gumbel draw made in slices of whole rows gives the argmax of
+    the one (rows, V) draw, for odd and even word counts."""
+    key = trandom.fold_in(trandom.PRNGKey(3), 5)
+    logp = tlm.zipf_logits(vocab)
+    g = trandom.gumbel(key, (rows, vocab))
+    want = torch.argmax(g + logp, dim=-1)
+    monkeypatch.setattr(tlm, "SLICE_WORDS", 2 * vocab + 1)
+    assert torch.equal(tlm.categorical_rows(key, logp, rows), want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 1000, 1001])
+def test_bits_at_equals_random_bits(n):
+    key = trandom.fold_in(trandom.PRNGKey(11), 2)
+    whole = trandom.random_bits(key, (n,))
+    pos = torch.arange(n, dtype=torch.int64)
+    assert torch.equal(trandom.bits_at(key, n, pos), whole)
+    assert torch.equal(trandom.bits_at(key, n, pos[n // 3:]),
+                       whole[n // 3:])
+
+
+# ----------------------------------------------------------------- launcher
+def test_launcher_trains_two_smoke_steps_on_the_cpu(capsys):
+    from repro_torch.launch.train import main
+
+    out = main(["--arch", "qwen3-1.7b", "--smoke", "--steps", "2",
+                "--batch", "2", "--seq-len", "32", "--device", "cpu"])
+    assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
+    assert "final loss" in capsys.readouterr().out
