@@ -96,12 +96,14 @@ def params_from_numpy(V, B, D, device: DeviceLike = None) -> NDPPParams:
 # The reference's tree: {"embed": {"table", "unembed"?}, "prefix": [layer],
 # "stack": {"pos{i}": layer with a leading repeat dim} (scan_layers) or
 # [layer] (repeat-major), "final_norm": {"w"} or {}}; a layer is {"norm1",
-# "mixer": {"wq", "wk", "wv", "wo", "q_norm"?, "k_norm"?}, "norm2"?,
-# "ffn": {"wg", "wu", "wd"}?}.  The port names the same leaves
-# "embed.table", "prefix.{i}.mixer.wq", "layers.{j}.ffn.wd", "final_norm.w"
-# with j = repeat * len(pattern) + pos, and keeps the reference's einsum
-# layouts (wq (d, h, hd), wo (h, hd, d), wg (d, f), table (V, d), unembed
-# (d, V)), so every leaf carries across unchanged in shape.
+# "mixer": {"wq", "wk", "wv", "wo", "q_norm"?, "k_norm"?} or, for a Mamba2
+# layer, {"w_in", "conv_w", "a_log", "dt_bias", "d_skip", "norm_w",
+# "w_out"}, "norm2"?, "ffn": {"wg", "wu", "wd"}?}.  The port names the
+# same leaves "embed.table", "prefix.{i}.mixer.wq", "layers.{j}.ffn.wd",
+# "final_norm.w" with j = repeat * len(pattern) + pos, and keeps the
+# reference's einsum layouts (wq (d, h, hd), wo (h, hd, d), wg (d, f),
+# table (V, d), unembed (d, V)), so every leaf carries across unchanged
+# in shape.
 
 
 def _flatten(tree: Dict[str, Any], prefix: str) -> Iterator[Tuple[str, Any]]:

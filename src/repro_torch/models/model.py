@@ -8,11 +8,12 @@ whatever ``cfg.scan_layers`` says: the scan is a layout choice of JAX, and
 ``repro_torch.convert`` un-stacks the reference's ``stack/pos{i}`` leading
 repeat dimension into these layers.
 
-Only attention + MLP layers are ported (families dense, vlm, audio).  MoE
-and MLA (moe), Mamba (ssm) and the hybrid interleave raise
-``NotImplementedError`` at construction; ``ROADMAP.md`` (Queue 1) names
-the slices that bring them.  So do a KV cache and a mesh, which come with
-the LM serving slice.
+Attention + MLP layers (families dense, vlm, audio) and FFN-less Mamba2
+layers (ssm: ``mamba.Mamba``, the SSD scan) are ported.  MoE and MLA
+(moe) raise ``NotImplementedError`` at construction, and so does the
+hybrid interleave (jamba's pattern holds MoE layers); ``ROADMAP.md``
+(Queue 1) names the slices that bring them.  So do a KV cache and a mesh,
+which come with the LM serving slice.
 """
 from __future__ import annotations
 
@@ -22,8 +23,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..device import DeviceLike, resolve_device
 from . import layers as L
 from .config import ModelConfig
+from .mamba import Mamba
 
 
 # ------------------------------------------------------------------ pattern
@@ -57,9 +60,6 @@ def layer_descriptors(cfg: ModelConfig) -> Tuple[List[dict], List[dict]]:
 
 def _unported(desc: dict) -> Optional[str]:
     """Why the port cannot build a layer of ``desc`` yet, or None."""
-    if desc["kind"] == "mamba":
-        return ("Mamba layers (ssm, hybrid) come with the SSM training "
-                "slice (kernel 8, models/mamba.py)")
     if desc["mla"] or desc["moe"]:
         return "MoE and MLA layers come with the MoE/MLA slice"
     return None
@@ -67,7 +67,8 @@ def _unported(desc: dict) -> Optional[str]:
 
 # ---------------------------------------------------------------- one layer
 class Layer(nn.Module):
-    """Pre-norm residual block: attention, then (if ``desc["ffn"]``) MLP."""
+    """Pre-norm residual block: the mixer (attention, or Mamba2 for
+    ``desc["kind"] == "mamba"``), then (if ``desc["ffn"]``) the MLP."""
 
     def __init__(self, cfg: ModelConfig, desc: dict,
                  gen: Optional[torch.Generator] = None, device=None):
@@ -77,14 +78,17 @@ class Layer(nn.Module):
             raise NotImplementedError(f"{cfg.name}: {why}; see ROADMAP.md, "
                                       f"Queue 1")
         self.norm1 = L.Norm(cfg, device)
-        self.mixer = L.Attention(cfg, gen, device)
+        self.is_mamba = desc["kind"] == "mamba"
+        self.mixer = (Mamba(cfg, gen, device) if self.is_mamba
+                      else L.Attention(cfg, gen, device))
         self.norm2 = self.ffn = None
         if desc["ffn"]:
             self.norm2 = L.Norm(cfg, device)
             self.ffn = L.MLP(cfg, gen, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        x = x + self.mixer(self.norm1(x), positions)
+        h = self.norm1(x)
+        x = x + (self.mixer(h) if self.is_mamba else self.mixer(h, positions))
         if self.ffn is not None:
             x = x + self.ffn(self.norm2(x))
         return x
@@ -107,11 +111,13 @@ class LM(nn.Module):
         self.final_norm = L.Norm(cfg, device)
 
 
-def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
+def init_model(cfg: ModelConfig, seed: int = 0,
+               device: DeviceLike = None) -> LM:
     """The model with parameters drawn from a ``torch.Generator`` seeded
-    with ``seed`` on ``device`` (the reference's distributions, not its
-    ``jax.random`` values)."""
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    with ``seed`` on ``device`` (default ``cuda``; without a card and
+    without a device this raises) with the reference's distributions, not
+    its ``jax.random`` values."""
+    dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return LM(cfg, gen, dev)

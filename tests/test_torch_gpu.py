@@ -453,3 +453,192 @@ def test_train_step_on_card_matches_cpu(cuda):
     for k, ref in grads["cpu"].items():
         err = float((grads["cuda"][k] - ref).abs().max())
         assert err <= 1e-3 * float(ref.abs().max()) + 1e-12, (k, err)
+
+
+# ------------------------------------------------------------ SSD (kernel 8)
+_SSD_CASES = [  # (B, S, H, P, N, chunk, smallest decay, B and C shared)
+    (2, 64, 2, 16, 8, 16, 0.7, False), (1, 128, 4, 32, 16, 32, 0.7, True),
+    (1, 96, 1, 8, 4, 32, 0.7, False), (1, 200, 3, 24, 20, 40, 0.5, True),
+    (2, 512, 4, 64, 128, 128, 0.5, True), (1, 384, 2, 64, 128, 128, 1e-6,
+                                          False),
+    (1, 256, 3, 64, 64, 64, 1e-6, True)]
+
+
+def _ssd_inputs(cuda, b, s, h, p, n, lo, shared, dtype, seed):
+    rng = np.random.default_rng(seed)
+    mk = lambda *sh: torch.as_tensor(rng.normal(size=sh).astype(np.float32),
+                                     device=cuda).to(dtype)
+    x = mk(b, s, h, p)
+    a = torch.as_tensor(np.exp(rng.uniform(np.log(lo), 0, size=(b, s, h)))
+                        .astype(np.float32), device=cuda)
+    if shared:  # one row over all heads, read through a head stride of 0
+        bb, cc = mk(b, s, 1, n).expand(b, s, h, n), mk(b, s, 1, n).expand(
+            b, s, h, n)
+    else:
+        bb, cc = mk(b, s, h, n), mk(b, s, h, n)
+    return x, a, bb, cc, mk(b, s, h, p), mk(b, h, n, p).float()
+
+
+def _ssd_want(x, a, bb, cc, dy, dh, chunk):
+    """The plain version in float32 on the same inputs, and autograd's
+    gradients of <y, dy> + <h_last, dh> for x, a, and b and c a head at a
+    time."""
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+    xs = [t.float().contiguous().requires_grad_(True) for t in (x, a, bb, cc)]
+    y, hl = ssd_chunked_ref(*xs, chunk=chunk)
+    return (y.detach(), hl.detach()), torch.autograd.grad(
+        (y, hl), xs, (dy.float(), dh))
+
+
+def _ssd_excess(got, want, a, chunk, rel):
+    """row_excess of (y, h_last, dx, d log a, db, dc): d log a = da * a,
+    since da = d log a / a divides float32 sums by decays down to 1e-6."""
+    from repro_torch.kernels.ssd.ref import da_rows, row_excess
+
+    (y, hl, dx, da, db, dc), ((wy, wh), (wx, wa, wb, wc)) = got, want
+    return {"y": row_excess(y, wy, 1, rel), "h_last": row_excess(hl, wh, 2, rel),
+            "dx": row_excess(dx, wx, 1, rel),
+            "dloga": row_excess(da_rows(da * a, chunk),
+                                da_rows(wa * a, chunk), 1, rel),
+            "db": row_excess(db, wb, 1, rel), "dc": row_excess(dc, wc, 1, rel)}
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,lo,shared", _SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel(cuda, b, s, h, p, n, chunk, lo, shared, dtype):
+    """Forward (y, h_last) and backward (dx, da, db, dc) through ``ssd``
+    on the card against the plain version in float32 on the same inputs,
+    every element within ``row_excess``'s per-row tolerance: 2^-12 of its
+    |value| + 2^-12 of its row's max in float32 (sums in another order,
+    cum rounded differently), 2^-8 (one bfloat16 rounding) in bfloat16.
+    da is compared as d log a = da * a.  One forward and one backward
+    launch each."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    x, a, bb, cc, dy, dh = _ssd_inputs(cuda, b, s, h, p, n, lo, shared,
+                                       dtype, seed=s + 7 * n + p)
+    f0, b0 = ssd_ops.launches, ssd_ops.bwd_launches
+    xs = [t.detach().requires_grad_(True) for t in (x, a)]
+    # gradients of b and c taken at the expanded views: a head at a time
+    bl = (bb[:, :, :1] if shared else bb).detach().requires_grad_(True)
+    cl = (cc[:, :, :1] if shared else cc).detach().requires_grad_(True)
+    be, ce = bl.expand(b, s, h, n), cl.expand(b, s, h, n)
+    y, hl = ssd_ops.ssd(xs[0], xs[1], be, ce, chunk=chunk)
+    dx, da, db, dc = torch.autograd.grad((y, hl), (*xs, be, ce), (dy, dh))
+    torch.cuda.synchronize()
+    assert (ssd_ops.launches, ssd_ops.bwd_launches) == (f0 + 1, b0 + 1)
+    assert y.dtype == dx.dtype == db.dtype == dc.dtype == dtype
+    assert hl.dtype == da.dtype == torch.float32
+    want = _ssd_want(x, a, bb, cc, dy, dh, chunk)
+    rel = 2.0 ** -12 if dtype == torch.float32 else 2.0 ** -8
+    excess = _ssd_excess((y, hl, dx, da, db, dc), want, a, chunk, rel)
+    assert max(excess.values()) <= 1, excess
+
+
+def test_ssd_row_tolerance_rejects_planted_faults(cuda):
+    """At the train path's widths (P 64, N 128, chunk 128, bf16, B and C
+    shared) the kernel passes ``row_excess`` while two planted faults
+    fail it: the state not carried across one chunk boundary (the
+    sequence run in two halves) and the decays of the wrong head."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import row_excess
+
+    b, s, h, p, n, q = 2, 1024, 8, 64, 128, 128
+    x, a, bb, cc, dy, _ = _ssd_inputs(cuda, b, s, h, p, n, 1e-3, True,
+                                      torch.bfloat16, seed=5)
+    (wy, _), (wx, *_) = _ssd_want(x, a, bb, cc, dy, torch.zeros(
+        b, h, n, p, device=cuda), q)
+
+    def run(sl, a_):
+        y, _, st = ssd_ops.ssd_forward(x[:, sl], a_[:, sl], bb[:, sl],
+                                       cc[:, sl], q, keep_states=True)
+        dx = ssd_ops.ssd_backward(x[:, sl], a_[:, sl], bb[:, sl], cc[:, sl],
+                                  st, dy[:, sl], None, q)[0]
+        return y, dx
+
+    y, dx = run(slice(None), a)
+    assert row_excess(y, wy) <= 1 and row_excess(dx, wx) <= 1
+    halves = [run(slice(0, s // 2), a), run(slice(s // 2, None), a)]
+    rolled = run(slice(None), a.roll(1, dims=2))
+    for name, (my, mdx) in {"no carry": [torch.cat(t, 1) for t in zip(
+            *halves)], "rolled a": rolled}.items():
+        assert row_excess(my, wy) > 1 and row_excess(mdx, wx) > 1, name
+
+
+def test_ssd_refuses_what_it_cannot_take(cuda):
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=cuda)
+    with pytest.raises(ValueError, match="divides the sequence"):
+        ssd_ops.ssd(z(1, 48, 2, 16), z(1, 48, 2), z(1, 48, 2, 8),
+                    z(1, 48, 2, 8), chunk=32)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ssd_ops.ssd(z(1, 32, 2, 12), z(1, 32, 2), z(1, 32, 2, 8),
+                    z(1, 32, 2, 8), chunk=32)
+    with pytest.raises(ValueError, match="multiple of 8 up to 64"):
+        ssd_ops.ssd(z(1, 32, 2, 128), z(1, 32, 2), z(1, 32, 2, 8),
+                    z(1, 32, 2, 8), chunk=32)
+    with pytest.raises(ValueError, match="state size N up to 128"):
+        ssd_ops.ssd(z(1, 32, 2, 16), z(1, 32, 2), z(1, 32, 2, 256),
+                    z(1, 32, 2, 256), chunk=32)
+    with pytest.raises(ValueError, match="chunk of 1..128"):
+        ssd_ops.ssd(z(1, 512, 2, 16), z(1, 512, 2), z(1, 512, 2, 8),
+                    z(1, 512, 2, 8), chunk=256)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        ssd_ops.ssd(z(1, 32, 2, 16, dt=torch.bfloat16), z(1, 32, 2),
+                    z(1, 32, 2, 8), z(1, 32, 2, 8), chunk=32)
+    with pytest.raises(NotImplementedError, match="serving slice"):
+        ssd_ops.ssd(z(1, 32, 2, 16), z(1, 32, 2), z(1, 32, 2, 8),
+                    z(1, 32, 2, 8), h0=z(1, 2, 8, 16), chunk=32)
+
+
+def test_mamba_train_step_on_card_matches_cpu(cuda):
+    """One AdamW step of the float32 mamba2 smoke model (4 layers, P 32,
+    N 16, chunk 32) at 2 x 256 on the card, where the SSD scan runs the
+    kernels forward and backward, against the same step on the CPU (the
+    plain chunked scan): loss and grad norm within 1e-4 relative, every
+    gradient within 1e-3 of its max |.| (float32 sums in other orders
+    through 4 layers and the loss); SSD launches 2 x 4 forward (remat)
+    and 4 backward."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models.model import init_model
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.steps import make_train_step
+
+    cfg = dataclasses.replace(get_smoke_config("mamba2-1.3b"), n_layers=4)
+    cpu_model = init_model(cfg, seed=3, device="cpu")
+    card_model = lm_params_from_numpy(cfg, lm_params_to_numpy(cfg, cpu_model),
+                                      cuda)
+    opt = make_optimizer(OptimizerConfig())
+    grads = {}
+    cpu_batch = lm_batch(cfg, 0, 0, 2, 256, device="cpu")
+
+    def run(model, dev):
+        params = dict(model.named_parameters())
+        state = opt.init(params)
+        batch = {k: t.to(dev) for k, t in cpu_batch.items()}
+        orig = opt.update
+
+        def spy(g, st, p):
+            grads[dev.type] = {k: t.float().cpu() for k, t in g.items()}
+            return orig(g, st, p)
+
+        step = make_train_step(cfg, opt._replace(update=spy))
+        _, _, metrics = step(model, state, batch)
+        return {k: float(t) for k, t in metrics.items()}
+
+    want = run(cpu_model, torch.device("cpu"))
+    f0, b0 = ssd_ops.launches, ssd_ops.bwd_launches
+    got = run(card_model, cuda)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches - f0 == 2 * cfg.n_layers
+    assert ssd_ops.bwd_launches - b0 == cfg.n_layers
+    for k in ("loss", "grad_norm"):
+        assert got[k] == pytest.approx(want[k], rel=1e-4), k
+    for k, ref in grads["cpu"].items():
+        err = float((grads["cuda"][k] - ref).abs().max())
+        assert err <= 1e-3 * float(ref.abs().max()) + 1e-12, (k, err)

@@ -2,10 +2,11 @@
 ``.train``) against the reference, on the CPU, with the reference's
 parameters carried across (``convert.lm_params_from_numpy``).
 
-The smoke configs of qwen3-1.7b (GQA, qk-norm) and olmo-1b (non-parametric
-LayerNorm, MHA) run in float32 with ``attn_chunk`` lowered below the
-sequence, so attention takes the query-chunked branch (the flash kernel's
-place on the card).  Tolerances, for float32 sums in other orders:
+The smoke configs of qwen3-1.7b (GQA, qk-norm), olmo-1b (non-parametric
+LayerNorm, MHA) and mamba2-1.3b (FFN-less Mamba2 layers, the chunked SSD
+scan at chunk 32 over a sequence of 64) run in float32 with ``attn_chunk``
+lowered below the sequence, so attention takes the query-chunked branch
+(the flash kernel's place on the card).  Tolerances, for float32 sums in other orders:
 hidden states and loss within 1e-5 relative (2e-5 of max |h| absolute);
 gradients, AdamW moments and updated parameters within 1e-4 of each
 leaf's max |.|.  ``lm_batch``'s tokens and labels are equal under the
@@ -32,17 +33,17 @@ from repro.train.optimizer import make_optimizer as r_make_optimizer
 from repro.train.steps import make_train_step as r_make_train_step
 from repro_torch import random as trandom
 from repro_torch.configs import SHAPES, get_config, get_smoke_config, input_specs
-from repro_torch.convert import (lm_grads_to_numpy, lm_params_from_numpy,
-                                 lm_params_to_numpy)
+from repro_torch.convert import (lm_grads_to_numpy, lm_named_from_tree,
+                                 lm_params_from_numpy, lm_params_to_numpy)
 from repro_torch.data import lm as tlm
-from repro_torch.models.model import (LM, forward_hidden, layer_descriptors,
-                                      lm_loss)
+from repro_torch.models.model import (LM, forward_hidden, init_model,
+                                      layer_descriptors, lm_loss)
 from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
 from repro_torch.train.steps import make_train_step
 
 from _torch_port import golden_key_layout
 
-ARCHS = ["qwen3-1.7b", "olmo-1b"]
+ARCHS = ["qwen3-1.7b", "olmo-1b", "mamba2-1.3b"]
 SEQ, BATCH, CHUNK = 64, 4, 32
 
 
@@ -89,12 +90,51 @@ def test_configs_and_descriptors_equal(arch):
             assert want == got
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mamba2-1.3b",
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
                                   "jamba-1.5-large-398b",
                                   "llama4-maverick-400b-a17b"])
 def test_unported_families_raise_at_construction(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         LM(get_smoke_config(arch), None, "cpu")
+
+
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+def test_mamba2_builds_with_the_reference_leaves(smoke):
+    """mamba2 (ssm) builds, at full width and depth too (on the meta
+    device: no memory), with the reference's parameter leaves, shapes and
+    dtypes, mixer leaves ``w_in``, ``conv_w``, ``a_log``, ``dt_bias``,
+    ``d_skip``, ``norm_w``, ``w_out`` and no norm2 or FFN."""
+    arch = "mamba2-1.3b"
+    rcfg = r_smoke(arch) if smoke else r_get_config(arch)
+    tcfg = get_smoke_config(arch) if smoke else get_config(arch)
+    model = LM(tcfg, None, "cpu" if smoke else "meta")
+    shapes = jax.eval_shape(lambda k: r_init_model(rcfg, k)[0],
+                            jax.random.PRNGKey(0))
+    # stand-ins of the leaves' shapes and dtypes that hold no memory
+    empty = jax.tree.map(lambda sd: np.broadcast_to(np.zeros((), sd.dtype),
+                                                    sd.shape), shapes)
+    want = {k: (tuple(v.shape), str(v.dtype)) for k, v in
+            lm_named_from_tree(tcfg, empty).items()}
+    got = {k: (tuple(p.shape), str(p.dtype).replace("torch.", ""))
+           for k, p in model.named_parameters()}
+    assert got == want
+    assert {k.split(".", 3)[-1] for k in got if k.startswith("layers.")} == {
+        "w", "w_in", "conv_w", "a_log", "dt_bias", "d_skip", "norm_w",
+        "w_out"}
+    assert len(model.layers) == rcfg.n_layers
+
+
+def test_init_model_without_a_device_runs_on_the_card_or_raises():
+    """``init_model`` resolves its device as every entry point does: cuda
+    by default, and without a card an error, never a silent CPU model."""
+    cfg = get_smoke_config("qwen3-1.7b")
+    if torch.cuda.is_available():
+        assert next(init_model(cfg).parameters()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_model(cfg)
+    assert next(init_model(cfg, device="cpu").parameters()).device.type == \
+        "cpu"
 
 
 # ------------------------------------------------------- forward and loss
@@ -278,5 +318,14 @@ def test_launcher_trains_two_smoke_steps_on_the_cpu(capsys):
 
     out = main(["--arch", "qwen3-1.7b", "--smoke", "--steps", "2",
                 "--batch", "2", "--seq-len", "32", "--device", "cpu"])
+    assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
+    assert "final loss" in capsys.readouterr().out
+
+
+def test_launcher_trains_two_mamba2_smoke_steps_on_the_cpu(capsys):
+    from repro_torch.launch.train import main
+
+    out = main(["--arch", "mamba2-1.3b", "--smoke", "--steps", "2",
+                "--batch", "2", "--seq-len", "64", "--device", "cpu"])
     assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
     assert "final loss" in capsys.readouterr().out
