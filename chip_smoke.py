@@ -49,10 +49,12 @@ kernel against its plain PyTorch version on the card:
    cut to 2 for one card: one cold step, 3 timed ones and one under the
    profiler; every loss finite, the first within 1.5 of ln(V), and the
    flash kernels launched 2 x 28 times a step forward (remat runs each
-   layer's forward again in the backward) and 28 times backward -> one
-   ``{"train": ...}`` line (losses, cold and warm step ms, data ms apart,
-   tokens/s, MFU, the profiled step's device busy share and top kernels,
-   peak device GB, launches), and a plain witness at the same size: the
+   layer's forward again in the backward) and 28 times backward, every
+   launch on the tensor-core ("wgmma") route -> one ``{"train": ...}``
+   line (losses, cold and warm step ms, data ms apart, tokens/s, MFU, the
+   profiled step's device busy share, top kernels and flash kernel ms,
+   peak device GB, launches by kernel and route), and a plain witness at
+   the same size: the
    same seeded init and batches with ``mha_ref`` under autograd in place
    of the flash kernels, step 0's loss, grad norm and every gradient leaf
    on the same params against the kernels', then the witness's own
@@ -76,7 +78,11 @@ kernel against its plain PyTorch version on the card:
    train step and a seeded dO; layer 0's x, a, B, C of a timed SSM train
    step and a seeded dy; planted faults must fail the attention and SSD
    per-row tolerances), with times, bounds and launch counts by path ->
-   one ``{"kernels": [...]}`` line of ten entries;
+   one ``{"kernels": [...]}`` line of ten entries.  The two flash entries
+   hold the tensor-core kernels (``csrc/flash_attn_sm90.cu``, whose SASS
+   must show HGMMA) with SDPA's own excess on the same inputs beside
+   theirs, and a ``simt`` sub-entry: the float32 route
+   (``csrc/flash_attn.cu``) at batch 1, 1,024 positions, within 2e-5;
 9. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero (an exception's traceback, or a FAIL line)
@@ -123,7 +129,7 @@ TRAIN_STEPS = 3             # timed steps, after one cold step
 TRAIN_SSM_ARCH = "mamba2-1.3b"  # the SSM train path, full width and depth
 DEVICE = "cuda"
 KERNEL_SOURCES = ("tree_sum", "spec_round", "mcmc_score", "bilinear",
-                  "flash_attn", "ssd")
+                  "flash_attn", "flash_attn_sm90", "ssd")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM data sheet, fp32 outside tensor cores
 BF16_FLOP_PER_S = 989e12   # H100 SXM data sheet, dense bf16 tensor cores
@@ -174,12 +180,12 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_window(fn) -> dict:
+def profile_window(fn, track: str = "") -> dict:
     """``fn()`` once under ``torch.profiler`` (CPU and CUDA): its wall ms
     (lengthened by the profiler), the ATen operator calls it made (nested
     calls included), the device's kernel ms and launch count in the
-    window, and the five kernels and host operators that take the most
-    time."""
+    window, the five kernels and host operators that take the most time
+    and, with ``track``, the kernels whose names hold it (ms, launches)."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -193,6 +199,7 @@ def profile_window(fn) -> dict:
     avgs = prof.key_averages()
     kernels = [e for e in avgs if _device_us(e) > 0 and e.cpu_time_total == 0]
     host = [e for e in avgs if e.self_cpu_time_total > 0]
+    tracked = [e for e in kernels if track and track in e.key]
     return {
         "wall_ms": wall * 1e3,
         "aten_calls": sum(e.count for e in avgs if e.key.startswith("aten::")),
@@ -204,7 +211,12 @@ def profile_window(fn) -> dict:
         "top_host_ops_ms": [[e.key[:60], e.self_cpu_time_total / 1e3, e.count]
                             for e in sorted(host, reverse=True,
                                             key=lambda e: e.self_cpu_time_total
-                                            )[:5]]}
+                                            )[:5]],
+        **({"tracked": {"match": track,
+                        "ms": sum(_device_us(e) for e in tracked) / 1e3,
+                        "kernels_ms": [[e.key[:60], _device_us(e) / 1e3,
+                                        e.count] for e in tracked]}}
+           if track else {})}
 
 
 # --------------------------------------------------------------- the kernel
@@ -277,9 +289,29 @@ def _count_owners():
             ("ssd_bwd", ssd_ops, "bwd_launches"))
 
 
+#: the flash kernels' launches by route (``attention/ops.py::_route``):
+#: (kernel name, "wgmma" count, "simt" count), each also in the total
+ROUTE_COUNTS = (("flash_attention", "wgmma_launches", "simt_launches"),
+                ("flash_attention_bwd", "wgmma_bwd_launches",
+                 "simt_bwd_launches"))
+
+
 def reset_counts() -> None:
+    from repro_torch.kernels.attention import ops as attn_ops
+
     for _, mod, attr in _count_owners():
         setattr(mod, attr, 0)
+    for _, *attrs in ROUTE_COUNTS:
+        for attr in attrs:
+            setattr(attn_ops, attr, 0)
+
+
+def read_routes() -> dict:
+    """The flash kernels' launches by route since the last reset."""
+    from repro_torch.kernels.attention import ops as attn_ops
+
+    return {name: {"wgmma": getattr(attn_ops, w), "simt": getattr(attn_ops, s)}
+            for name, w, s in ROUTE_COUNTS}
 
 
 def read_counts() -> dict:
@@ -1317,13 +1349,14 @@ def train_flop(cfg, batch: int, seq: int) -> float:
     return 6.0 * matmul_params(cfg) * tokens + 3.0 * mixers
 
 
-def train_steps(cfg, seq, hook):
+def train_steps(cfg, seq, hook, track: str):
     """``cfg`` at full width and depth from the port's seeded init, AdamW
     with the reference defaults, ``lm_batch`` at TRAIN_BATCH x ``seq``: one
     cold step, TRAIN_STEPS timed ones, then one under ``torch.profiler``.
     ``hook`` = (module, attribute) of the op whose first call in the first
     timed step (layer 0's) has its inputs recorded for the kernels' parity
-    phase.  Launch counts are set to 0 before and read after."""
+    phase; the profiled step reports the kernels whose names hold
+    ``track``.  Launch counts are set to 0 before and read after."""
     import torch
     from repro_torch.data.lm import lm_batch
     from repro_torch.models.model import init_model
@@ -1377,9 +1410,11 @@ def train_steps(cfg, seq, hook):
     # one more step under the profiler: device busy time and top kernels
     batch = lm_batch(cfg, SEED, 1 + TRAIN_STEPS, TRAIN_BATCH, seq,
                      device=DEVICE)
-    prof = profile_window(lambda: float(step_fn(model, state, batch)[2]["loss"]))
+    prof = profile_window(
+        lambda: float(step_fn(model, state, batch)[2]["loss"]), track)
     del batch
     launches = read_counts()
+    routes = read_routes()
     peak = torch.cuda.max_memory_allocated()
     del model, state
     gc.collect()
@@ -1392,8 +1427,8 @@ def train_steps(cfg, seq, hook):
     check(len(captured) == 1, f"layer 0's {attr} inputs were not recorded")
     return {"ocfg": ocfg, "init_s": init_s, "losses": losses,
             "grad_norms": gnorms, "step_ms": step_ms, "data_ms": data_ms,
-            "prof": prof, "launches": launches, "peak": peak,
-            "captured": captured[0]}
+            "prof": prof, "launches": launches, "routes": routes,
+            "peak": peak, "captured": captured[0]}
 
 
 def check_launches(launches, name, want, what):
@@ -1443,7 +1478,7 @@ def run_train():
 
     cfg = get_config(TRAIN_ARCH)
     seq = SHAPES[TRAIN_SHAPE].seq_len
-    run = train_steps(cfg, seq, (attn_ops, "mha"))
+    run = train_steps(cfg, seq, (attn_ops, "mha"), "flash_")
     n_steps = 2 + TRAIN_STEPS
     check_launches(run["launches"], "flash_attention",
                    2 * cfg.n_layers * n_steps,
@@ -1451,6 +1486,10 @@ def run_train():
     check_launches(run["launches"], "flash_attention_bwd",
                    cfg.n_layers * n_steps,
                    f"{cfg.n_layers} a step over {n_steps} steps")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        check(run["routes"][name]["wgmma"] == run["launches"][name],
+              f"{name}: not every launch of the train step took the wgmma "
+              f"route: {run['routes'][name]}")
     witness = train_witness(cfg, seq, run, (attn_ops, "mha", attn_ref.mha_ref),
                             "mha_ref under autograd", WITNESS_TOL)
     emit({"train": train_line(
@@ -1459,7 +1498,7 @@ def run_train():
         "N = matmul_params (the untied token table, a gather, left out); "
         "remat's recompute not counted",
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.head_dim, d_ff=cfg.d_ff)})
+        head_dim=cfg.head_dim, d_ff=cfg.d_ff, flash_routes=run["routes"])})
     check(witness["ok"], f"the train run parted from its plain witness: "
                          f"{witness}")
     return run["captured"], run["launches"]
@@ -1479,7 +1518,7 @@ def run_train_ssm():
 
     cfg = get_config(TRAIN_SSM_ARCH)
     seq = SHAPES[TRAIN_SHAPE].seq_len
-    run = train_steps(cfg, seq, (ssd_ops, "ssd"))
+    run = train_steps(cfg, seq, (ssd_ops, "ssd"), "ssd_")
     n_steps = 2 + TRAIN_STEPS
     check_launches(run["launches"], "ssd", 2 * cfg.n_layers * n_steps,
                    f"2 x {cfg.n_layers} a step (remat) over {n_steps} steps")
@@ -1724,9 +1763,70 @@ def _attn_bytes_flop(q, k, backward: bool):
     return 3 * qo + o32 + kv + lse + kv, 10.0 * d * pairs
 
 
-def check_flash_attention(qkv, launches):
+def flash_sass_has_hgmma() -> bool:
+    """The built tensor-core flash library's SASS holds HGMMA (wgmma)."""
+    from repro_torch.kernels import _build
+
+    return "HGMMA" in _build.sass("flash_attn_sm90")
+
+
+#: the SIMT sub-entries' shape: the float32 route at one sequence of the
+#: train inputs (batch 1, the first 1,024 positions, all heads)
+SIMT_SEQ = 1024
+
+
+def _route_delta(before: dict, name: str) -> dict:
+    after = read_routes()[name]
+    return {r: after[r] - before[name][r] for r in after}
+
+
+def check_flash_simt(qkv, backward: bool) -> dict:
+    """The SIMT kernels (the float32 route) on layer 0's q, k, v cut to
+    batch 1 and SIMT_SEQ positions, in float32, against the plain version
+    (autograd of it for the backward): within 2e-5 of the output's max
+    |.|, as the float32 cases of tests/test_torch_gpu.py; with its time."""
+    import torch
+    from repro_torch.kernels.attention import ops, ref
+
+    q, k, v = (x[:1, :, :SIMT_SEQ].float().contiguous() for x in qkv)
+    scale = q.shape[-1] ** -0.5
+    name = "flash_attention_bwd" if backward else "flash_attention"
+    if not backward:
+        before = read_routes()
+        got, _, _ = ops.flash_forward(q, k, v, True, scale)
+        got, want = [got], [ref.mha_ref(q, k, v)]
+        routes = _route_delta(before, name)
+        ms = cuda_ms(lambda: ops.flash_forward(q, k, v, True, scale), reps=5)
+    else:
+        gen = torch.Generator(device=q.device)
+        gen.manual_seed(SEED + 1)
+        dout = torch.randn(q.shape, generator=gen, device=q.device)
+        _, lse, o32 = ops.flash_forward(q, k, v, True, scale)
+        before = read_routes()
+        got = ops.flash_backward(q, k, v, o32, lse, dout, True, scale)
+        routes = _route_delta(before, name)
+        qf, kf, vf = (x.clone().requires_grad_(True) for x in (q, k, v))
+        want = torch.autograd.grad(ref.mha_ref(qf, kf, vf), (qf, kf, vf),
+                                   dout)
+        ms = cuda_ms(lambda: ops.flash_backward(q, k, v, o32, lse, dout, True,
+                                                scale), reps=5)
+    torch.cuda.synchronize()
+    rel = max(float((g - w).abs().max()) / float(w.abs().max())
+              for g, w in zip(got, want))
+    b, h, s, d = q.shape
+    return {"source": "src/repro_torch/csrc/flash_attn.cu",
+            "flash_route": "simt", "route_launches": routes,
+            "max_err_over_max": rel, "tolerance": "2e-5 of the max |.|",
+            "ms": ms, "ok": rel <= 2e-5 and routes == {"wgmma": 0, "simt": 1},
+            "shape": {"B": b, "H": h, "KVH": k.shape[1], "S": s, "D": d,
+                      "dtype": "float32"}}
+
+
+def check_flash_attention(qkv, launches, hgmma: bool):
     """Kernel 7's forward on layer 0's q, k, v of a timed train step
-    against the plain version in float32 on the same bf16 inputs."""
+    against the plain version in float32 on the same bf16 inputs (the
+    wgmma route), SDPA's excess on the same inputs beside it, and the
+    SIMT route in float32 (``check_flash_simt``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.attention import ops, ref
@@ -1734,7 +1834,9 @@ def check_flash_attention(qkv, launches):
     q, k, v = qkv
     scale = q.shape[-1] ** -0.5
     s = q.shape[2]
+    before = read_routes()
     o, lse, o32 = ops.flash_forward(q, k, v, True, scale)
+    routes = _route_delta(before, "flash_attention")
     rounded = bool(torch.equal(o, o32.to(o.dtype)))
     want = ref.mha_ref(q.float(), k.float(), v.float())
     want_lse = ref.mha_lse_ref(q, k, v)
@@ -1743,6 +1845,10 @@ def check_flash_attention(qkv, launches):
     rel = err / float(want.abs().max())
     excess = ref.bf16_excess(o, want)
     lse_err = float((lse - want_lse).abs().max())
+    lib_out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                             enable_gqa=True)
+    library_excess = ref.bf16_excess(lib_out, want)
+    del lib_out
     # planted faults the tolerance must reject
     late_zero = o.clone()
     late_zero[:, :, s // 2:] = 0
@@ -1751,8 +1857,10 @@ def check_flash_attention(qkv, launches):
                "V of kv head (kh + 1) % KVH": ref.bf16_excess(next_head_v,
                                                               want)}
     del late_zero, next_head_v
+    simt = check_flash_simt(qkv, backward=False)
     ok = (excess <= 1 and lse_err <= 1e-4 and rounded
-          and all(x > 1 for x in mutants.values()))
+          and all(x > 1 for x in mutants.values())
+          and routes == {"wgmma": 1, "simt": 0} and hgmma and simt["ok"])
     del want, want_lse, o32
     ms = cuda_ms(lambda: ops.flash_forward(q, k, v, True, scale), reps=10)
     plain_ms = cuda_ms(lambda: ref.mha_ref(q, k, v), reps=3)
@@ -1762,10 +1870,13 @@ def check_flash_attention(qkv, launches):
     bms, by = bound(n_bytes, n_flop, BF16_FLOP_PER_S)
     b, h, s, d = q.shape
     return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attn.cu",
+            "flash_route": "wgmma", "route_launches": routes,
+            "sass_has_hgmma": hgmma,
+            "source": "src/repro_torch/csrc/flash_attn_sm90.cu",
             "replaces": "src/repro/kernels/attention/flash.py:87",
             "launches": launches, "max_abs_err": err,
             "max_err_over_max_out": rel, "excess": excess,
+            "library_excess": library_excess,
             "lse_max_abs_err": lse_err, "mutants_excess": mutants,
             "o_is_float32_o_rounded": rounded,
             "tolerance": "against the plain version in float32 on the same "
@@ -1774,18 +1885,21 @@ def check_flash_attention(qkv, launches):
                          "the global max (excess <= 1, ref.bf16_excess); "
                          "log-sum-exp within 1e-4; O equal to the kept "
                          "float32 O rounded; each planted fault rejected "
-                         "(excess > 1)",
+                         "(excess > 1); the launch on the wgmma route, "
+                         "HGMMA in the SASS; the simt entry within 2e-5",
             "ok": ok, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": library_ms,
             "library": "F.scaled_dot_product_attention(is_causal=True, "
                        "enable_gqa=True)",
             "shape": {"B": b, "H": h, "KVH": k.shape[1], "S": s, "D": d,
-                      "dtype": str(q.dtype).replace("torch.", "")}}
+                      "dtype": str(q.dtype).replace("torch.", "")},
+            "simt": simt}
 
 
-def check_flash_attention_bwd(qkv, launches):
+def check_flash_attention_bwd(qkv, launches, hgmma: bool):
     """Kernel 7b, the backward, on the same inputs and a dO drawn from a
-    seed, against autograd of the plain version in float32."""
+    seed, against autograd of the plain version in float32 (the wgmma
+    route), SDPA's excess beside it, and the SIMT route in float32."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.attention import ops, ref
@@ -1796,16 +1910,26 @@ def check_flash_attention_bwd(qkv, launches):
     gen.manual_seed(SEED)
     dout = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
     _, lse, o32 = ops.flash_forward(q, k, v, True, scale)
+    before = read_routes()
     dq, dk, dv = ops.flash_backward(q, k, v, o32, lse, dout, True, scale)
+    routes = _route_delta(before, "flash_attention_bwd")
     qf, kf, vf = (x.float().requires_grad_(True) for x in (q, k, v))
     want = torch.autograd.grad(ref.mha_ref(qf, kf, vf), (qf, kf, vf),
                                dout.float())
+    del qf, kf, vf
     torch.cuda.synchronize()
-    errs, excess = {}, {}
+    errs, excess, library_excess = {}, {}, {}
     for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         errs[name] = float((got.float() - w).abs().max()) / float(
             w.abs().max())
         excess[name] = ref.bf16_excess(got, w)
+    qp, kp, vp = (x.detach().requires_grad_(True) for x in (q, k, v))
+    lib = F.scaled_dot_product_attention(qp, kp, vp, is_causal=True,
+                                         enable_gqa=True)
+    lib_grads = torch.autograd.grad(lib, (qp, kp, vp), dout)
+    for name, got, w in zip(("dq", "dk", "dv"), lib_grads, want):
+        library_excess[name] = ref.bf16_excess(got, w)
+    del lib, lib_grads
     # planted faults the tolerance must reject
     s = q.shape[2]
     zq, zk = dq.clone(), dk.clone()
@@ -1820,12 +1944,13 @@ def check_flash_attention_bwd(qkv, launches):
                                                         want[2]),
         "dq from V of the next kv head": ref.bf16_excess(nq, want[0]),
         "dk from V of the next kv head": ref.bf16_excess(nk, want[1])}
-    del zq, zk, nq, nk
+    del zq, zk, nq, nk, want
+    simt = check_flash_simt(qkv, backward=True)
     ok = (max(excess.values()) <= 1
-          and all(x > 1 for x in mutants.values()))
+          and all(x > 1 for x in mutants.values())
+          and routes == {"wgmma": 1, "simt": 0} and hgmma and simt["ok"])
     ms = cuda_ms(lambda: ops.flash_backward(q, k, v, o32, lse, dout, True,
-                                            scale), reps=5)
-    qp, kp, vp = (x.detach().requires_grad_(True) for x in (q, k, v))
+                                            scale), reps=10)
     out = ref.mha_ref(qp, kp, vp)
     plain_ms = cuda_ms(lambda: torch.autograd.grad(
         out, (qp, kp, vp), dout, retain_graph=True), reps=3)
@@ -1839,23 +1964,29 @@ def check_flash_attention_bwd(qkv, launches):
     bms, by = bound(n_bytes, n_flop, BF16_FLOP_PER_S)
     b, h, s, d = q.shape
     return {"name": "flash_attention_bwd", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attn.cu",
+            "flash_route": "wgmma", "route_launches": routes,
+            "sass_has_hgmma": hgmma,
+            "source": "src/repro_torch/csrc/flash_attn_sm90.cu",
             "replaces": "src/repro/kernels/attention/flash.py:87 (the TPU "
                         "kernel has no backward; this is the port's own)",
             "launches": launches, "max_abs_err": max(errs.values()),
             "max_err_over_max_grad": errs, "excess": excess,
+            "library_excess": library_excess,
             "mutants_excess": mutants,
             "tolerance": "against autograd of the plain version in float32, "
                          "every element of dq, dk and dv within 2^-8 of its "
                          "|value| + 2^-8 of its row's max (a query's for "
                          "dq, a key's for dk, dv) + 2^-16 of the global max "
                          "(excess <= 1, ref.bf16_excess); each planted fault "
-                         "rejected (excess > 1)",
+                         "rejected (excess > 1); the launch on the wgmma "
+                         "route, HGMMA in the SASS; the simt entry within "
+                         "2e-5",
             "ok": ok, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": library_ms,
             "library": "autograd backward of F.scaled_dot_product_attention",
             "shape": {"B": b, "H": h, "KVH": k.shape[1], "S": s, "D": d,
-                      "dtype": str(q.dtype).replace("torch.", "")}}
+                      "dtype": str(q.dtype).replace("torch.", "")},
+            "simt": simt}
 
 
 #: the SSD entries' per-row tolerance (``ssd/ref.py::row_excess``): one
@@ -2123,8 +2254,9 @@ def main() -> int:
     qkv, by_path["train"] = run_train()
     gc.collect()
     torch.cuda.empty_cache()
-    entries.append(check_flash_attention(qkv, None))
-    entries.append(check_flash_attention_bwd(qkv, None))
+    hgmma = flash_sass_has_hgmma()
+    entries.append(check_flash_attention(qkv, None, hgmma))
+    entries.append(check_flash_attention_bwd(qkv, None, hgmma))
     del qkv
     gc.collect()
     torch.cuda.empty_cache()

@@ -100,6 +100,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def sass(name: str) -> str:
+    """The SASS of the built ``csrc/<name>.cu`` (``cuobjdump
+    --dump-sass``), building it first if need be."""
+    build([name])
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "--dump-sass", str(_lib_path(name))],
+                         capture_output=True, text=True, check=True)
+    return out.stdout
+
+
 def check(code: int, what: str) -> None:
     """Raise if a C entry returned a nonzero ``cudaError_t``."""
     if code != 0:

@@ -1,6 +1,7 @@
 """Plain PyTorch version of causal GQA attention (port of
-``repro/kernels/attention/ref.py``): the oracle of ``csrc/flash_attn.cu``'s
-forward, and, through autograd, of its backward."""
+``repro/kernels/attention/ref.py``): the oracle of the flash kernels'
+forward (``csrc/flash_attn_sm90.cu`` and ``csrc/flash_attn.cu``), and,
+through autograd, of their backward."""
 from __future__ import annotations
 
 from typing import Optional

@@ -4,10 +4,20 @@ Every draw of the sampler is keyed by its position (proposal ``t`` of a
 request is ``fold_in(request_key, t)``), so the port must reproduce the
 reference's key schedule exactly, not merely its distribution: a stateful
 ``torch.Generator`` would tie draws to the batching schedule.  This module
-is the reference's ``jax._src.prng`` threefry2x32 implementation in the
-layout of ``jax_threefry_partitionable=False`` (the layout that wrote the
-reference's golden files), written with torch integer ops so it runs on
-any device.
+is the reference's ``jax._src.prng`` threefry2x32 implementation, written
+with torch integer ops so it runs on any device, in either layout of
+``jax_threefry_partitionable``:
+
+- ``False`` (this module's default; the layout that wrote the reference's
+  golden files): ``split`` and ``random_bits`` hash the counts
+  0 .. 2n - 1 cut in two halves, word pairs (i, half + i);
+- ``True`` (jax 0.5's default onwards): they hash the 64-bit position of
+  each output as its (high, low) word pair; ``split`` keeps both output
+  words as the new key, ``random_bits`` their xor.
+
+``fold_in`` is the same in both.  ``threefry_partitionable(flag)`` sets
+the layout for a block, as ``jax.threefry_partitionable`` does; it is not
+thread-safe.
 
 A key is an int64 tensor of shape ``(..., 2)`` holding two uint32 words;
 every function takes a batch of keys (leading dims ``...``) and treats each
@@ -16,7 +26,8 @@ uint32 arithmetic is int64 arithmetic masked to the low 32 bits.
 """
 from __future__ import annotations
 
-from typing import Sequence, Union
+import contextlib
+from typing import Iterator, Sequence, Union
 
 import numpy as np
 import torch
@@ -28,6 +39,21 @@ _F32_NMANT = 23
 _F32_TINY = float(np.finfo(np.float32).tiny)
 
 Shape = Union[int, Sequence[int]]
+
+
+#: the layout of ``jax_threefry_partitionable`` the functions below follow
+_partitionable = False
+
+
+@contextlib.contextmanager
+def threefry_partitionable(flag: bool) -> Iterator[None]:
+    """Follow ``jax_threefry_partitionable=flag`` inside the block."""
+    global _partitionable
+    old, _partitionable = _partitionable, bool(flag)
+    try:
+        yield
+    finally:
+        _partitionable = old
 
 
 def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
@@ -51,9 +77,10 @@ def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
 
 
 def _hash_counts(keys: torch.Tensor, n: int) -> torch.Tensor:
-    """``threefry_2x32(key, iota(n))`` per key: the count vector is cut in
-    two halves (zero-padded to even length), hashed as word pairs, and the
-    two output halves concatenated.  keys (..., 2) -> (..., n)."""
+    """``threefry_2x32(key, iota(n))`` per key (the ``False`` layout): the
+    count vector is cut in two halves (zero-padded to even length), hashed
+    as word pairs, and the two output halves concatenated.
+    keys (..., 2) -> (..., n)."""
     half = (n + 1) // 2
     count = torch.arange(2 * half, dtype=torch.int64, device=keys.device)
     if n % 2:
@@ -62,6 +89,14 @@ def _hash_counts(keys: torch.Tensor, n: int) -> torch.Tensor:
     k2 = keys[..., 1:2]
     a, b = threefry2x32(k1, k2, count[:half], count[half:])
     return torch.cat([a, b], dim=-1)[..., :n]
+
+
+def _hash_positions(keys: torch.Tensor, pos: torch.Tensor):
+    """Both output words of ``threefry2x32(key, (pos >> 32, pos & mask))``
+    (the ``True`` layout's ``iota_2x32_shape`` counts) for positions
+    ``pos`` (int64, 1-D) per key: keys (..., 2) -> two (..., len(pos))."""
+    return threefry2x32(keys[..., 0:1], keys[..., 1:2], pos >> 32,
+                        pos & _MASK)
 
 
 def as_key(key, device=None) -> torch.Tensor:
@@ -85,6 +120,9 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
 
 def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` per key: (..., 2) -> (..., num, 2)."""
+    if _partitionable:  # _threefry_split_foldlike
+        pos = torch.arange(num, dtype=torch.int64, device=keys.device)
+        return torch.stack(_hash_positions(keys, pos), dim=-1)
     bits = _hash_counts(keys, 2 * num)
     return bits.reshape(tuple(keys.shape[:-1]) + (num, 2))
 
@@ -104,16 +142,27 @@ def random_bits(keys: torch.Tensor, shape: Shape) -> torch.Tensor:
     words in int64."""
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     n = int(np.prod(shape, dtype=np.int64))
-    return _hash_counts(keys, n).reshape(tuple(keys.shape[:-1]) + shape)
+    if _partitionable:  # _threefry_random_bits_partitionable
+        pos = torch.arange(n, dtype=torch.int64, device=keys.device)
+        a, b = _hash_positions(keys, pos)
+        bits = a ^ b
+    else:
+        bits = _hash_counts(keys, n)
+    return bits.reshape(tuple(keys.shape[:-1]) + shape)
 
 
 def bits_at(key: torch.Tensor, n: int, pos: torch.Tensor) -> torch.Tensor:
     """The words at flat positions ``pos`` (int64, each < n) of
     ``random_bits(key, (n,))`` for one key (2,), without the other
-    positions: position p < half = ceil(n/2) is the first output word of
-    the counter pair (p, half + p), a later p the second word of
-    (p - half, p); for odd n the last pair's second counter is 0.  So a
-    large draw can be made in slices, each bit-equal to the whole."""
+    positions, so that a large draw can be made in slices, each bit-equal
+    to the whole.  In the ``True`` layout position p is the xor of the
+    two words of the counter pair (p >> 32, p & mask).  In the ``False``
+    layout p < half = ceil(n/2) is the first output word of the counter
+    pair (p, half + p), a later p the second word of (p - half, p); for
+    odd n the last pair's second counter is 0."""
+    if _partitionable:
+        a, b = threefry2x32(key[0], key[1], pos >> 32, pos & _MASK)
+        return a ^ b
     half = (n + 1) // 2
     first = pos < half
     x1 = torch.where(first, pos, pos - half)

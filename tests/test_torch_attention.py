@@ -168,12 +168,31 @@ def test_kernel_refuses_shapes_before_building():
         taops.flash_backward(bf, bf, bf, bf, z(1, 2, 8), bf, True, 1.0)
 
 
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 72, "simt"), (torch.bfloat16, 136, "simt"),
+    (torch.bfloat16, 256, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt"), (torch.float32, 256, "simt"),
+    (torch.bfloat16, 12, None), (torch.float32, 100, None),
+    (torch.bfloat16, 264, None), (torch.float32, 512, None),
+    (torch.float16, 128, None)])
+def test_route_by_dtype_and_head_dim(dtype, d, want):
+    """bfloat16 with D a multiple of 16 up to 128 goes to the tensor-core
+    kernels, float32 and the other bfloat16 head dims up to 256 to the
+    SIMT kernels; no route for D % 8, D > 256 or another dtype."""
+    assert taops._route(dtype, d) == want
+
+
 def test_cpu_calls_do_not_count_as_launches():
-    before = (taops.launches, taops.bwd_launches)
+    counts = lambda: (taops.launches, taops.bwd_launches,
+                      taops.wgmma_launches, taops.simt_launches,
+                      taops.wgmma_bwd_launches, taops.simt_bwd_launches)
+    before = counts()
     q, k, v = (torch.from_numpy(a).requires_grad_(True)
                for a in _inputs(1, 2, 1, 64, 32))
     taops.mha(q, k, v).sum().backward()
-    assert (taops.launches, taops.bwd_launches) == before
+    assert counts() == before
 
 
 def _bf16_case(s=1024, d=64):

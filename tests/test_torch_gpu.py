@@ -336,7 +336,9 @@ _FLASH_CASES = [  # (Sq, Sk, D, g, causal): S 200 and 100 are ragged
     (200, 200, 256, 3, True), (1024, 1024, 80, 1, True),
     (128, 128, 256, 1, False), (384, 384, 64, 3, False),
     (200, 200, 128, 3, False), (100, 200, 64, 2, True),
-    (128, 384, 256, 2, True)]
+    (128, 384, 256, 2, True), (2048, 2048, 128, 8, True),
+    (1, 300, 128, 2, True), (130, 390, 48, 3, True),
+    (64, 640, 112, 4, False)]
 
 
 @pytest.mark.parametrize("sq,sk,d,g,causal", _FLASH_CASES)
@@ -346,7 +348,9 @@ def test_flash_attention_kernel(cuda, sq, sk, d, g, causal, dtype):
     against the plain version in float32 on the same inputs: within 2e-5
     of each output's max |.| in float32; in bfloat16 each of O, dq, dk and
     dv within ``bf16_excess``'s per-element, per-row tolerance (the
-    chip_smoke tolerance), the log-sum-exp within 1e-4."""
+    chip_smoke tolerance), the log-sum-exp within 1e-4.  bfloat16 at D
+    48, 64, 80, 112 and 128 runs the tensor-core kernels ("wgmma"), the
+    rest the SIMT kernels; each route's counts must show it."""
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.attention.ref import (bf16_excess, mha_lse_ref,
                                                    mha_ref)
@@ -359,6 +363,10 @@ def test_flash_attention_kernel(cuda, sq, sk, d, g, causal, dtype):
     q, k, v = mk(b, h, sq, d), mk(b, kvh, sk, d), mk(b, kvh, sk, d)
     dout = mk(b, h, sq, d)
     f0, b0 = attn_ops.launches, attn_ops.bwd_launches
+    by_route = lambda: (attn_ops.wgmma_launches, attn_ops.simt_launches,
+                        attn_ops.wgmma_bwd_launches,
+                        attn_ops.simt_bwd_launches)
+    r0 = by_route()
     qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
     o = attn_ops.mha(qg, kg, vg, causal=causal)
     dq, dk, dv = torch.autograd.grad(o, (qg, kg, vg), dout)
@@ -367,6 +375,10 @@ def test_flash_attention_kernel(cuda, sq, sk, d, g, causal, dtype):
     torch.cuda.synchronize()
     assert torch.equal(o1, o) and torch.equal(o32.to(dtype), o)
     assert (attn_ops.launches, attn_ops.bwd_launches) == (f0 + 2, b0 + 1)
+    wgmma = dtype == torch.bfloat16 and d % 16 == 0 and d <= 128
+    assert attn_ops._route(dtype, d) == ("wgmma" if wgmma else "simt")
+    got = tuple(x - y for x, y in zip(by_route(), r0))
+    assert got == ((2, 0, 1, 0) if wgmma else (0, 2, 0, 1)), got
     assert o.dtype == dq.dtype == dk.dtype == dv.dtype == dtype
 
     qf, kf, vf = (t.float().requires_grad_(True) for t in (q, k, v))
@@ -383,6 +395,32 @@ def test_flash_attention_kernel(cuda, sq, sk, d, g, causal, dtype):
         else:
             assert bf16_excess(got, ref) <= 1, (name, bf16_excess(got, ref))
     assert float((lse - wl).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_takes_strided_and_unaligned_inputs(cuda, dtype):
+    """A contiguous view at an address that is not 16-byte aligned (TMA's
+    rule) and a transposed k give the same outputs as fresh copies."""
+    from repro_torch.kernels.attention import ops as attn_ops
+
+    rng = np.random.default_rng(5)
+    mk = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                                    device=cuda).to(dtype)
+    q, k, v, dout = mk(2, 4, 96, 64), mk(2, 2, 96, 64), mk(2, 2, 96, 64), \
+        mk(2, 4, 96, 64)
+    buf = torch.empty(q.numel() + 8, dtype=dtype, device=cuda)
+    buf[1:q.numel() + 1] = q.flatten()
+    q_odd = buf[1:q.numel() + 1].view(q.shape)
+    k_t = k.transpose(2, 3).contiguous().transpose(2, 3)
+    assert q_odd.data_ptr() % 16 and not k_t.is_contiguous()
+    o, lse, o32 = attn_ops.flash_forward(q, k, v, True, 0.125)
+    o2, lse2, o322 = attn_ops.flash_forward(q_odd, k_t, v, True, 0.125)
+    grads = attn_ops.flash_backward(q, k, v, o32, lse, dout, True, 0.125)
+    grads2 = attn_ops.flash_backward(q_odd, k_t, v, o322, lse2, dout, True,
+                                     0.125)
+    torch.cuda.synchronize()
+    for a, b in zip((o, lse, o32, *grads), (o2, lse2, o322, *grads2)):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_refuses_what_it_cannot_take(cuda):

@@ -1,10 +1,12 @@
 """The port's threefry2x32 key schedule against ``jax.random``.
 
-Every function must be bit-exact with the reference under the key layout of
-the golden files (``jax_threefry_partitionable=False``): keys, raw bits and
-uniforms compare as uint32 words, categorical draws as indices.  Only the
-Gumbel noise goes through ``log``, whose last bit differs between XLA and
-PyTorch; it is compared with a tolerance of a few float32 ulps.
+Every case runs in both key layouts, ``jax_threefry_partitionable=False``
+(the layout of the golden files) and ``True`` (jax's default), set alike on
+both sides.  Every function must be bit-exact with the reference: keys, raw
+bits and uniforms compare as uint32 words, categorical and randint draws as
+integers.  Only the Gumbel and normal noise go through ``log`` and
+``erfinv``, whose last bits differ between XLA and PyTorch; they are
+compared with a tolerance of a few float32 ulps.
 """
 import jax
 import jax.numpy as jnp
@@ -12,14 +14,16 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import golden_key_layout
 from repro_torch import random as trandom
 
 
-@pytest.fixture(autouse=True)
-def _layout():
-    with golden_key_layout():
-        yield
+@pytest.fixture(autouse=True, params=[False, True],
+                ids=["partitionable_false", "partitionable_true"])
+def _layout(request):
+    """Both layouts, on both sides, scoped to the test."""
+    with jax.threefry_partitionable(request.param), \
+            trandom.threefry_partitionable(request.param):
+        yield request.param
 
 
 def _t(key):
@@ -103,4 +107,32 @@ def test_categorical(n_cat):
         size=(256, n_cat)).astype(np.float32)
     want = jax.vmap(jax.random.categorical)(keys, jnp.asarray(logits))
     got = trandom.categorical(_t(keys), torch.as_tensor(logits))
+    assert (got.numpy() == np.asarray(want)).all()
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 1000, 1001])
+def test_bits_at(n):
+    """Words at chosen flat positions equal ``jax.random.bits``'s there."""
+    key = jax.random.fold_in(jax.random.PRNGKey(16), 3)
+    want = _u32(jax.random.bits(key, (n,), jnp.uint32))
+    pos = np.arange(n)[::3][::-1].copy()
+    got = trandom.bits_at(_t(key), n, torch.as_tensor(pos))
+    assert (_u32(got) == want[pos]).all()
+
+
+def test_normal_close():
+    """Uniform words bit-exact underneath; erfinv's last bits differ."""
+    keys = jax.random.split(jax.random.PRNGKey(17), 32)
+    want = np.asarray(jax.vmap(lambda k: jax.random.normal(k, (65,)))(keys))
+    got = trandom.normal(_t(keys), (65,)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 10), (-5, 1000), (3, 4),
+                                   (-2**31, 2**31 - 1)])
+def test_randint(lo, hi):
+    keys = jax.random.split(jax.random.PRNGKey(18), 16)
+    want = jax.vmap(lambda k: jax.random.randint(k, (33,), lo, hi))(keys)
+    got = trandom.randint(_t(keys), (33,), lo, hi)
     assert (got.numpy() == np.asarray(want)).all()

@@ -80,6 +80,19 @@ def test_golden_rejection_draws(golden_samplers):
     assert port == json.loads(GOLDEN.read_text())
 
 
+def test_rejection_draws_in_partitionable_layout(golden_samplers):
+    """Under ``jax_threefry_partitionable=True`` (jax's default) on both
+    sides, the draws equal the reference's, run live."""
+    ref, got = golden_samplers
+    with jax.threefry_partitionable(True), \
+            trandom.threefry_partitionable(True):
+        live = as_payload(jax_sample_batched_many(
+            ref, jax.random.PRNGKey(5), 8, n_spec=4, max_trials=100))
+        port = as_payload(sample_batched_many(
+            got, trandom.PRNGKey(5), 8, n_spec=4, max_trials=100))
+    assert port == live
+
+
 @pytest.mark.parametrize("n_spec,max_trials", [(4, 10), (2, 3), (8, 100)])
 def test_driver_matches_reference_with_exhaustion(golden_samplers, n_spec,
                                                   max_trials):
