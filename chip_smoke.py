@@ -2268,9 +2268,15 @@ def main() -> int:
     entries.append(check_ssd(xabc, chunk, None))
     entries.append(check_ssd_bwd(xabc, chunk, None))
     del xabc
+    # the float32 yardsticks run in full float32 only while this is False
+    tf32 = bool(torch.backends.cuda.matmul.allow_tf32)
     for e in entries:
         e["launches_by_path"] = {p: c[e["name"]] for p, c in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())
+        e["ms_over_bound"] = e["ms"] / e["bound_ms"]
+        if e["library_ms"] is not None:
+            e["ms_over_library"] = e["ms"] / e["library_ms"]
+            e["library_allow_tf32"] = tf32
     emit({"kernels": entries})
     bad = [e["name"] for e in entries if not e["ok"]]
     check(not bad, f"kernel parity failed: {bad}")

@@ -14,12 +14,22 @@
 // B = 64, R = 200) 13.5 MB (4.0 us at 3.35 TB/s) against 165 MFLOP
 // (2.5 us at 67 TFLOP/s).
 //
-// Design: descend_score's leaf stage without the descent (spec_round.cu).
-// One CTA of 512 threads per lane; Q_n is copied once into dynamic shared
-// memory (160 KB at R = 200) when R <= kMaxR, else read from global memory
-// (L1/L2), and each warp scores rows with leaf_score.cuh's
-// leaf_block_scores, the very code of descend_score's leaf stage, so a
-// block's scores are bit-equal to descend_score's raw scores of that block.
+// Design: descend_score's leaf stage (leaf_score.cuh) rescheduled, its
+// arithmetic kept.  That stage scores one row a warp at a time and loads
+// two operands from shared memory for every FMA; here a CTA of 4 warps
+// takes 32 rows of one lane, so the sharded path's 64 lanes x 64 rows run
+// as 128 CTAs on the 132 SMs, and each warp scores 8 rows at once: a
+// shared-memory load of q[i][j] feeds 8 FMAs, and column i of its 8 rows
+// (staged transposed) comes in as two 16-byte broadcasts.  Q_n is copied
+// into shared memory with cp.async in two halves of its rows (up to
+// R = kMaxR, 196 KB), the first half's FMAs running while the second
+// lands; above kMaxR it is read from global memory (L1/L2), 224 columns a
+// pass.  Every chain is leaf_block_scores's, in its order: for each column
+// j, c_j = one fmaf chain over i = 0..R-1 from 0; lane l's partial = one
+// fmaf(c_j, z_j, .) chain over j = l, l+32, ... ascending; then the xor
+// butterfly 16, 8, 4, 2, 1.  So a block's scores stay bit-equal to
+// descend_score's raw scores of that block (kernel 1 keeps the old
+// schedule).
 //
 // bilinear replaces bilinear_pallas (_bilinear_kernel): p[m] =
 // z_m^T W z_m over the rows of Z (M, R) against one R x R matrix, float32
@@ -31,34 +41,140 @@
 // and written (0.84 GB, 0.25 ms); the tile does the full 2 M R^2.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#include "leaf_score.cuh"
+#include "cp_async.cuh"
 #include "quad_form.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxR = 224;  // Q on chip up to here, as in descend_score
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRowsPerWarp = 8;                  // a warp's rows at once
+constexpr int kRowsPerCta = kWarps * kRowsPerWarp;
+constexpr int kSlots = 7;                        // columns j = j0 + 32k + lane
+constexpr int kMaxR = 32 * kSlots;               // Q on chip up to here
+constexpr int kMaxSmem = 232448;                 // bytes a CTA may use
 
+// c[t][k] = fmaf(z_t[i], q[i][jc[k]], c[t][k]) for i = i0 .. i1-1 in
+// order.  zw: the warp's rows, transposed (column i's 8 values at zw[8i]).
+__device__ __forceinline__ void leaf_columns(
+    const float* __restrict__ zw, const float* __restrict__ q, int R,
+    int i0, int i1, const int (&jc)[kSlots],
+    float (&c)[kRowsPerWarp][kSlots]) {
+#pragma unroll 2
+  for (int i = i0; i < i1; ++i) {
+    const float4 za = *reinterpret_cast<const float4*>(zw + 8 * i);
+    const float4 zb = *reinterpret_cast<const float4*>(zw + 8 * i + 4);
+    const float z[kRowsPerWarp] = {za.x, za.y, za.z, za.w,
+                                   zb.x, zb.y, zb.z, zb.w};
+    const float* qi = q + (long long)i * R;
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      const float qv = qi[jc[k]];
+#pragma unroll
+      for (int t = 0; t < kRowsPerWarp; ++t) c[t][k] = fmaf(z[t], qv, c[t][k]);
+    }
+  }
+}
+
+// acc[t] = fmaf(c[t][k], z_t[j], acc[t]) for the valid columns j = j0 +
+// 32k + lane, k ascending.
+__device__ __forceinline__ void leaf_partials(
+    const float* __restrict__ zw, int R, int j0, int lane,
+    const float (&c)[kRowsPerWarp][kSlots], float (&acc)[kRowsPerWarp]) {
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int j = j0 + 32 * k + lane;
+    if (j < R) {
+      const float4 za = *reinterpret_cast<const float4*>(zw + 8 * j);
+      const float4 zb = *reinterpret_cast<const float4*>(zw + 8 * j + 4);
+      const float z[kRowsPerWarp] = {za.x, za.y, za.z, za.w,
+                                     zb.x, zb.y, zb.z, zb.w};
+#pragma unroll
+      for (int t = 0; t < kRowsPerWarp; ++t)
+        acc[t] = fmaf(c[t][k], z[t], acc[t]);
+    }
+  }
+}
+
+// One CTA per (lane n, group of kRowsPerCta rows); groups = ceil(B / 32).
+// vec: R % 4 == 0 and Q 16-byte aligned (Q_n copied 16 bytes at a time).
 template <bool kQOnChip>
 __global__ void __launch_bounds__(kThreads)
 bilinear_batched_kernel(const float* __restrict__ Z,
                         const float* __restrict__ Q, int B, int R,
-                        float* __restrict__ out) {
-  extern __shared__ float leaf_smem[];
-  const long long n = blockIdx.x;
+                        int groups, bool vec, float* __restrict__ out) {
+  extern __shared__ float4 leaf_smem[];
+  float* zs = reinterpret_cast<float*>(leaf_smem);  // kRowsPerCta * R
+  const long long n = blockIdx.x / groups;
+  const int row0 = (int)(blockIdx.x % groups) * kRowsPerCta;
   const long long RR = (long long)R * R;
   const float* qn = Q + n * RR;
-  float* stage = leaf_smem;                  // kWarps * R: one row per warp
-  const float* q = qn;
+  const float* zn = Z + n * B * R;
+  const int half = R / 2;  // Q's rows 0 .. half-1 land first
+  float* sq = zs + kRowsPerCta * R;                 // R * R, on chip only
   if (kQOnChip) {
-    float* sq = leaf_smem + kWarps * R;      // R * R
-    for (long long e = threadIdx.x; e < RR; e += kThreads) sq[e] = qn[e];
-    __syncthreads();
-    q = sq;
+    const long long cut = (long long)half * R;
+    if (vec) {
+      for (long long e = threadIdx.x; 4 * e < cut; e += kThreads)
+        repro_torch::cp_async16(sq + 4 * e, qn + 4 * e);
+      repro_torch::cp_async_commit();
+      for (long long e = cut / 4 + threadIdx.x; 4 * e < RR; e += kThreads)
+        repro_torch::cp_async16(sq + 4 * e, qn + 4 * e);
+    } else {
+      for (long long e = threadIdx.x; e < cut; e += kThreads)
+        repro_torch::cp_async4(sq + e, qn + e);
+      repro_torch::cp_async_commit();
+      for (long long e = cut + threadIdx.x; e < RR; e += kThreads)
+        repro_torch::cp_async4(sq + e, qn + e);
+    }
+    repro_torch::cp_async_commit();
   }
-  repro_torch::leaf_block_scores(Z + n * B * R, q, B, R, stage, out + n * B);
+  // The CTA's rows, transposed per warp: row row0 + 8w + t, column i at
+  // zs[(w R + i) 8 + t]; rows past B are zero (scored, never written).
+  for (int e = threadIdx.x; e < kRowsPerCta * R; e += kThreads) {
+    const int t = e / R, i = e - t * R;
+    const int row = row0 + t;
+    zs[((t >> 3) * R + i) * kRowsPerWarp + (t & 7)] =
+        row < B ? zn[(long long)row * R + i] : 0.f;
+  }
+  if (kQOnChip) repro_torch::cp_async_wait<1>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* zw = zs + (long long)warp * R * kRowsPerWarp;
+  float acc[kRowsPerWarp];
+#pragma unroll
+  for (int t = 0; t < kRowsPerWarp; ++t) acc[t] = 0.f;
+  for (int j0 = 0; j0 < R; j0 += kMaxR) {  // one pass when Q is on chip
+    float c[kRowsPerWarp][kSlots];
+    int jc[kSlots];  // past R: any valid column, its c is never used
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      jc[k] = min(j0 + 32 * k + lane, R - 1);
+#pragma unroll
+      for (int t = 0; t < kRowsPerWarp; ++t) c[t][k] = 0.f;
+    }
+    if (kQOnChip) {
+      leaf_columns(zw, sq, R, 0, half, jc, c);
+      repro_torch::cp_async_wait<0>();
+      __syncthreads();
+      leaf_columns(zw, sq, R, half, R, jc, c);
+    } else {
+      leaf_columns(zw, qn, R, 0, R, jc, c);
+    }
+    leaf_partials(zw, R, j0, lane, c, acc);
+  }
+  float mine = 0.f;
+#pragma unroll
+  for (int t = 0; t < kRowsPerWarp; ++t) {
+    for (int o = 16; o > 0; o >>= 1)
+      acc[t] += __shfl_xor_sync(0xffffffffu, acc[t], o);
+    if (lane == t) mine = acc[t];
+  }
+  const int row = row0 + warp * kRowsPerWarp + lane;
+  if (lane < kRowsPerWarp && row < B) out[n * B + row] = mine;
 }
 
 }  // namespace
@@ -70,24 +186,30 @@ extern "C" int bilinear_batched_launch(const float* Z, const float* Q,
                                        float* out, long long N, int B, int R,
                                        void* stream) {
   if (N <= 0 || B <= 0) return cudaSuccess;
-  if (R <= 0 || N > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (R <= 0) return cudaErrorInvalidValue;
+  const int groups = (B + kRowsPerCta - 1) / kRowsPerCta;
+  if (N * groups > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const bool on_chip = R <= kMaxR;
+  const size_t smem = ((size_t)kRowsPerCta * R +
+                       (on_chip ? (size_t)R * R : 0)) * sizeof(float);
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  const bool vec = R % 4 == 0 && reinterpret_cast<uintptr_t>(Q) % 16 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (R <= kMaxR) {
-    const size_t smem = ((size_t)kWarps * R + (size_t)R * R) * sizeof(float);
+  const unsigned grid = (unsigned)(N * groups);
+  if (on_chip) {
     cudaError_t err = cudaFuncSetAttribute(
         bilinear_batched_kernel<true>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    bilinear_batched_kernel<true><<<(unsigned)N, kThreads, smem, s>>>(
-        Z, Q, B, R, out);
+    bilinear_batched_kernel<true><<<grid, kThreads, smem, s>>>(
+        Z, Q, B, R, groups, vec, out);
   } else {
-    const size_t smem = (size_t)kWarps * R * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
         bilinear_batched_kernel<false>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    bilinear_batched_kernel<false><<<(unsigned)N, kThreads, smem, s>>>(
-        Z, Q, B, R, out);
+    bilinear_batched_kernel<false><<<grid, kThreads, smem, s>>>(
+        Z, Q, B, R, groups, vec, out);
   }
   return cudaGetLastError();
 }

@@ -1,14 +1,15 @@
-// Leaf-block scoring shared by descend_score (spec_round.cu) and
-// bilinear_batched (bilinear.cu).
+// Leaf-block scoring of descend_score (spec_round.cu).
 //
 // leaf_block_scores writes the raw scores z_b^T Q z_b of `block` rows
 // z_b (row-major, R floats each) against one R x R projector Q.  Warp w
 // scores rows w, w + n_warps, ...: the row is staged in shared memory,
 // lane j accumulates column j, j + 32, ... of z^T Q as one float32 FMA
 // chain over i = 0..R-1, multiplies it into z_j with a second FMA chain,
-// and the warp adds its 32 partial sums by xor shuffles.  Both kernels run
-// this very code, so bilinear_batched's score of a block equals
-// descend_score's raw score of the same block bit for bit.
+// and the warp adds its 32 partial sums by xor shuffles.  bilinear_batched
+// (bilinear.cu) runs the very same chains and butterfly in another
+// schedule (8 rows a warp), so its score of a block equals descend_score's
+// raw score of the same block bit for bit: a change to the arithmetic here
+// must be made there too.
 #pragma once
 
 namespace repro_torch {

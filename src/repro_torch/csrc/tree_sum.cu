@@ -13,43 +13,143 @@
 // against 3.46 GB, 1.03 ms at 3.35 TB/s.  The output (2.6 GB) is larger
 // than the input (0.84 GB).
 //
-// Design: one CTA per (leaf block, 32 x 32 output tile), tiles of a block
-// adjacent in the 1-D grid so the block's rows are fetched from HBM once
-// and re-read from L2 by its other tiles.  Each thread sums 4 entries over
-// the block's rows in a fixed order with float32 FMA (block_gram_tile in
-// gram.cuh, shared with gathered_block_grams below so that a
-// rebuilt block is bit-equal to the full build).  No tensor cores: TF32
-// would break the float32 contract, and a faster design (register tiling,
-// wgmma in 3xTF32, writing only one triangle) is later work.
+// Design: one CTA of 128 threads per leaf block.  The block's rows are
+// staged in shared memory once (cp.async, 51 KB at 64 x 200), and each
+// thread owns 8 x 8 register tiles of the upper triangle only
+// (gram_tile_8x8 in gram.cuh: two 16-byte loads of its rows' and two of
+// its columns' values a row, 64 FMAs), so it does the triangle's FMAs and
+// not both halves, and reads shared memory once for 4 FMAs where a
+// 32 x 32 tile of 4 entries a thread read it once per FMA.  A tile is
+// written twice, as itself and mirrored (bit-exact: gram.cuh); when
+// R % 8 == 0 every 8-float row of a tile is one 32-byte sector, and two
+// neighbouring threads swap halves by shuffle so that each 16-byte store
+// instruction fills whole sectors.  Float32 FMA only: TF32 (or 3xTF32 on
+// the tensor cores) would change the bits that gathered_block_grams must
+// reproduce.  Four CTAs fit an SM, so one block's stores overlap the
+// others' loads and FMAs.
 //
 // gathered_block_grams replaces gathered_block_grams_pallas
 // (_gathered_gram_kernel): the Grams of only the blocks named by an index
 // vector, the dynamic catalog's row update.  The TPU kernel gathers its
 // block by scalar prefetch; here each CTA loads its own block id.  Each
-// CTA owns one (index i, 32 x 32 tile) and runs the very same
-// block_gram_tile on block blks[i], so a recomputed block is bit-equal to
-// the same block of block_outer_sums (the catalog's tree stays bit-equal
-// to a rebuild).  Bound: bytes, nb * (block*R + R^2) * 4 (216 MB, 65 us
-// at 3.35 TB/s for 1,024 blocks of 64 rows at R = 200), against
-// nb * block * R(R+1) FLOP (2.6 GFLOP, 39 us).
+// CTA owns one (index i, 32 x 32 tile) and runs block_gram_tile on block
+// blks[i]: the same chain as block_outer_sums in another schedule, so a
+// recomputed block is bit-equal to the same block of block_outer_sums (the
+// catalog's tree stays bit-equal to a rebuild).  Bound: bytes,
+// nb * (block*R + R^2) * 4 (216 MB, 65 us at 3.35 TB/s for 1,024 blocks of
+// 64 rows at R = 200), against nb * block * R(R+1) FLOP (2.6 GFLOP, 39 us).
 #include <cuda_runtime.h>
 
 #include <math.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 #include "gram.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(repro_torch::kGramTile * repro_torch::kGramRowsY)
+constexpr int kOuterThreads = 128;
+constexpr int kOuterRows = 64;            // rows staged a pass
+constexpr int kMaxSmem = 232448;          // bytes a CTA may use (sm_90)
+
+// Lanes 2k and 2k+1 each hold one 8-float row segment (v0 | v1) bound for
+// the 32-byte sector at `own`; `par` is the partner's.  Each of the two
+// stores writes one whole sector: first the even lane's, then the odd
+// lane's.  w_own / w_par: whether this lane's / the partner's segment is
+// to be written.  Called by all 32 lanes.
+__device__ __forceinline__ void paired_store(float* own, float* par,
+                                             float4 v0, float4 v1,
+                                             bool w_own, bool w_par,
+                                             bool odd) {
+  const float4 send = odd ? v0 : v1;
+  float4 recv;
+  recv.x = __shfl_xor_sync(0xffffffffu, send.x, 1);
+  recv.y = __shfl_xor_sync(0xffffffffu, send.y, 1);
+  recv.z = __shfl_xor_sync(0xffffffffu, send.z, 1);
+  recv.w = __shfl_xor_sync(0xffffffffu, send.w, 1);
+  float* d1 = odd ? par + 4 : own;
+  const float4 s1 = odd ? recv : v0;
+  float* d2 = odd ? own + 4 : par;
+  const float4 s2 = odd ? v1 : recv;
+  if (odd ? w_par : w_own) *reinterpret_cast<float4*>(d1) = s1;
+  if (odd ? w_own : w_par) *reinterpret_cast<float4*>(d2) = s2;
+}
+
+// One CTA per leaf block.  T = ceil(R / 8) column tiles; chunk: rows staged
+// a pass (all of the block when block <= chunk).  vec_in: R % 4 == 0 and
+// W 16-byte aligned; vec_out: R % 8 == 0 and out 32-byte aligned.
+__global__ void __launch_bounds__(kOuterThreads, 4)
 block_outer_sums_kernel(const float* __restrict__ W, float* __restrict__ out,
-                        int block, int R, int tiles) {
-  const long long cta = blockIdx.x;
-  const long long n = cta / (tiles * tiles);
-  const int t = (int)(cta % (tiles * tiles));
-  const int i0 = (t / tiles) * repro_torch::kGramTile;
-  const int j0 = (t % tiles) * repro_torch::kGramTile;
-  repro_torch::block_gram_tile(W + n * block * R, block, R, i0, j0,
-                               out + n * R * R);
+                        int block, int R, int T, int chunk, bool vec_in,
+                        bool vec_out) {
+  using repro_torch::kGramReg;
+  extern __shared__ float4 outer_smem[];
+  float* s = reinterpret_cast<float*>(outer_smem);
+  const long long n = blockIdx.x;
+  const float* wb = W + n * block * R;
+  float* ob = out + n * R * R;
+  const int n_tiles = T * (T + 1) / 2;
+  const bool once = block <= chunk;
+  if (once) {
+    repro_torch::gram_stage_rows(wb, R, T, 0, block, s, vec_in);
+    __syncthreads();
+  }
+  const int lane = threadIdx.x & 31;
+  const bool odd = lane & 1;
+  for (int p0 = 0; p0 < n_tiles; p0 += kOuterThreads) {
+    const int p = p0 + threadIdx.x;
+    const bool active = p < n_tiles;
+    int ti, tj;
+    repro_torch::gram_tri_tile(active ? p : 0, ti, tj);
+    float acc[kGramReg][kGramReg];
+#pragma unroll
+    for (int a = 0; a < kGramReg; ++a)
+#pragma unroll
+      for (int b = 0; b < kGramReg; ++b) acc[a][b] = 0.f;
+    for (int r0 = 0; r0 < block; r0 += chunk) {
+      const int rows = min(chunk, block - r0);
+      if (!once) {
+        __syncthreads();
+        repro_torch::gram_stage_rows(wb, R, T, r0, rows, s, vec_in);
+        __syncthreads();
+      }
+      if (active) repro_torch::gram_tile_8x8(s, T, rows, ti, tj, acc);
+    }
+    const int i0 = kGramReg * ti, j0 = kGramReg * tj;
+    if (vec_out) {  // R == 8T: no column past R
+      const int pti = __shfl_xor_sync(0xffffffffu, ti, 1);
+      const int ptj = __shfl_xor_sync(0xffffffffu, tj, 1);
+      const bool pact = __shfl_xor_sync(0xffffffffu, (int)active, 1) != 0;
+      const int pi0 = kGramReg * pti, pj0 = kGramReg * ptj;
+#pragma unroll
+      for (int a = 0; a < kGramReg; ++a)  // the tile's own rows
+        paired_store(ob + (long long)(i0 + a) * R + j0,
+                     ob + (long long)(pi0 + a) * R + pj0,
+                     make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]),
+                     make_float4(acc[a][4], acc[a][5], acc[a][6], acc[a][7]),
+                     active, pact, odd);
+      const bool mir = active && ti != tj, pmir = pact && pti != ptj;
+#pragma unroll
+      for (int b = 0; b < kGramReg; ++b)  // mirrored: row j0 + b, columns i0..
+        paired_store(ob + (long long)(j0 + b) * R + i0,
+                     ob + (long long)(pj0 + b) * R + pi0,
+                     make_float4(acc[0][b], acc[1][b], acc[2][b], acc[3][b]),
+                     make_float4(acc[4][b], acc[5][b], acc[6][b], acc[7][b]),
+                     mir, pmir, odd);
+    } else if (active) {
+#pragma unroll
+      for (int a = 0; a < kGramReg; ++a)
+#pragma unroll
+        for (int b = 0; b < kGramReg; ++b) {
+          const int i = i0 + a, j = j0 + b;
+          if (i < R && j < R) {
+            ob[(long long)i * R + j] = acc[a][b];
+            if (ti != tj) ob[(long long)j * R + i] = acc[a][b];
+          }
+        }
+    }
+  }
 }
 
 __global__ void __launch_bounds__(repro_torch::kGramTile * repro_torch::kGramRowsY)
@@ -84,13 +184,23 @@ extern "C" int block_outer_sums_launch(const float* W, float* out,
                                        void* stream) {
   if (n_blocks <= 0) return cudaSuccess;
   if (block <= 0 || R <= 0) return cudaErrorInvalidValue;
-  const int tiles = (R + repro_torch::kGramTile - 1) / repro_torch::kGramTile;
-  const long long grid = n_blocks * tiles * tiles;
-  if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  dim3 threads(repro_torch::kGramTile, repro_torch::kGramRowsY);
-  block_outer_sums_kernel<<<(unsigned)grid, threads, 0,
+  if (n_blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const int T = repro_torch::gram_col_tiles(R);
+  const long long row_bytes = 8LL * T * sizeof(float);
+  const int chunk = (int)std::min<long long>(
+      std::min<long long>(kOuterRows, block), kMaxSmem / row_bytes);
+  if (chunk < 1) return cudaErrorInvalidValue;  // bounds T: T(T+1)/2 fits
+  const size_t smem = (size_t)(chunk * row_bytes);
+  const bool vec_in = R % 4 == 0 && reinterpret_cast<uintptr_t>(W) % 16 == 0;
+  const bool vec_out =
+      R % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 32 == 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      block_outer_sums_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  block_outer_sums_kernel<<<(unsigned)n_blocks, kOuterThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
-      W, out, block, R, tiles);
+      W, out, block, R, T, chunk, vec_in, vec_out);
   return cudaGetLastError();
 }
 

@@ -20,6 +20,10 @@ from .ref import bilinear_batched_ref, bilinear_ref
 #: a 32-column panel of W in float32 (400 R bytes of shared memory)
 MAX_R = 512
 
+#: the largest R ``bilinear_batched`` takes: csrc/bilinear.cu stages a CTA's
+#: 32 rows in shared memory (128 R bytes of at most 232,448)
+BATCHED_MAX_R = 1816
+
 #: launches of the CUDA kernel by ``bilinear`` (and ``bilinear_sharded``,
 #: one per shard) since the count was last set to 0; plain-version calls
 #: on CPU tensors do not count
@@ -96,9 +100,10 @@ def bilinear_sharded(Z: msh.Rows, W: torch.Tensor, mesh) -> torch.Tensor:
 
 def bilinear_batched(Z: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """p_{n,b} = z_{n,b}^T W_n z_{n,b}: Z (N, B, R) rows and W (N, R, R)
-    inner matrices, float32 -> (N, B) float32.  The kernel runs
-    ``descend_score``'s leaf stage (``csrc/leaf_score.cuh``), so the scores
-    of a block equal that kernel's raw scores of the block bit for bit."""
+    inner matrices, float32 -> (N, B) float32.  The kernel runs the FMA
+    chains of ``descend_score``'s leaf stage (``csrc/leaf_score.cuh``) in
+    their order, 8 rows a warp, so the scores of a block equal that
+    kernel's raw scores of the block bit for bit."""
     if Z.dim() != 3 or tuple(W.shape) != (Z.shape[0], Z.shape[2], Z.shape[2]):
         raise ValueError(f"shape mismatch: Z {tuple(Z.shape)}, W "
                          f"{tuple(W.shape)}")
@@ -113,6 +118,9 @@ def bilinear_batched(Z: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor")
     n, b, r = Z.shape
+    if r > BATCHED_MAX_R:
+        raise ValueError(f"bilinear_batched stages its rows on chip and "
+                         f"takes R <= {BATCHED_MAX_R}; got R = {r}")
     out = torch.empty((n, b), dtype=torch.float32, device=dev)
     fn = _batched_lib()
     with torch.cuda.device(dev):

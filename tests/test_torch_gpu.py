@@ -54,8 +54,18 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,block,r", [(5, 4, 8), (3, 5, 33), (7, 13, 130),
-                                       (16, 64, 200)])
+# The redesigned kernels' edges: R around their 8-column and 32-column
+# tiles and kernel 1's on-chip limit of 224; row counts that are not
+# multiples of the 8-row (kernel 3) or 64-row (kernel 2) tiles; lane and
+# block counts below and above the 132 SMs.
+_EDGE_R = (1, 31, 33, 64, 65, 200, 224, 225, 512)
+_EDGE_ROWS = (5, 13, 63, 64)
+_EDGE_N = (3, 140)
+_GRAM_CASES = [(5, 4, 8), (3, 5, 33), (7, 13, 130), (16, 64, 200)] + [
+    (n, block, r) for r in _EDGE_R for block in _EDGE_ROWS for n in _EDGE_N]
+
+
+@pytest.mark.parametrize("n,block,r", _GRAM_CASES)
 def test_block_outer_sums_kernel(cuda, n, block, r):
     rng = np.random.default_rng(n * 1000 + r)
     w = torch.as_tensor(rng.normal(size=(n * block, r)).astype(np.float32),
@@ -68,6 +78,9 @@ def test_block_outer_sums_kernel(cuda, n, block, r):
     torch.testing.assert_close(got, want, rtol=1e-5,
                                atol=1e-5 * float(want.abs().max()))
     assert torch.equal(got, got.transpose(1, 2))
+    # the gathered kernel runs the same chain in another schedule
+    every = torch.arange(n, device=cuda)
+    assert torch.equal(got, tree_sum_ops.gathered_block_grams(w, every, block))
 
 
 def _tree(rng, depth, r, dev):
@@ -200,9 +213,16 @@ def test_score_all_refuses_wide_r(cuda):
                             torch.zeros((1, r, r), device=cuda))
 
 
-@pytest.mark.parametrize("n,b,r", [(3, 5, 8), (4, 64, 33), (64, 64, 200),
-                                   (5, 5, 200), (2, 5, 512), (3, 64, 512)])
+_BATCHED_CASES = [(3, 5, 8), (4, 64, 33), (64, 64, 200), (5, 5, 200),
+                  (2, 5, 512), (3, 64, 512)] + [
+    (n, b, r) for r in _EDGE_R for b in _EDGE_ROWS for n in _EDGE_N]
+
+
+@pytest.mark.parametrize("n,b,r", _BATCHED_CASES)
 def test_bilinear_batched_kernel(cuda, n, b, r):
+    """Against the plain version within 1e-4 of the largest score; up to
+    kernel 1's on-chip limit also against descend_score's raw scores of
+    the same rows (a one-block tree a lane), bit for bit."""
     rng = np.random.default_rng(n * 100 + b + r)
     z = torch.as_tensor(rng.normal(size=(n, b, r)).astype(np.float32),
                         device=cuda)
@@ -215,13 +235,31 @@ def test_bilinear_batched_kernel(cuda, n, b, r):
     want = bilinear_batched_ref(z, w)
     torch.testing.assert_close(got, want, rtol=1e-4,
                                atol=1e-4 * float(want.abs().max()))
+    if r <= spec_ops.MAX_R:
+        nodes = torch.zeros((1, r, r), device=cuda)
+        us = torch.zeros((1, 1), device=cuda)
+        raw = torch.cat([spec_ops.descend_score(nodes, z[i], b, w[i:i + 1],
+                                                us)[1] for i in range(n)])
+        assert torch.equal(got, raw)
 
 
-@pytest.mark.parametrize("depth,block,r,n", [(3, 5, 8, 6), (5, 64, 33, 9),
-                                             (4, 64, 200, 16)])
+def test_bilinear_batched_refuses_wide_r(cuda):
+    r = bilinear_ops.BATCHED_MAX_R + 1
+    with pytest.raises(ValueError, match="R <="):
+        bilinear_ops.bilinear_batched(torch.zeros((1, 1, r), device=cuda),
+                                      torch.zeros((1, r, r), device=cuda))
+
+
+_LEAF_CASES = [(3, 5, 8, 6), (5, 64, 33, 9), (4, 64, 200, 16)] + [
+    (3, block, r, n) for r in _EDGE_R if r <= 224 for block in _EDGE_ROWS
+    for n in (9, 140)]
+
+
+@pytest.mark.parametrize("depth,block,r,n", _LEAF_CASES)
 def test_bilinear_batched_equals_descend_score_leaf(cuda, depth, block, r, n):
-    """The two kernels share the leaf stage: bilinear_batched's scores of
-    the blocks descend_score chose are its raw scores, bit for bit."""
+    """The two kernels share the leaf stage's chains: bilinear_batched's
+    scores of the blocks descend_score chose are its raw scores, bit for
+    bit."""
     rng = np.random.default_rng(depth * 7 + r)
     nodes = _tree(rng, depth, r, cuda)
     w = torch.as_tensor(rng.normal(size=((1 << depth) * block, r))
