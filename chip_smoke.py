@@ -82,7 +82,10 @@ kernel against its plain PyTorch version on the card:
    hold the tensor-core kernels (``csrc/flash_attn_sm90.cu``, whose SASS
    must show HGMMA) with SDPA's own excess on the same inputs beside
    theirs, and a ``simt`` sub-entry: the float32 route
-   (``csrc/flash_attn.cu``) at batch 1, 1,024 positions, within 2e-5;
+   (``csrc/flash_attn.cu``) at batch 1, 1,024 positions, within 2e-5.
+   The ``score_all`` and ``bilinear`` entries name the quadratic form's
+   route (chosen by R in ``quad_form.cuh``: "resident" at R = 200) and must
+   have taken it, with the paths' launches by route beside the totals;
 9. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero (an exception's traceback, or a FAIL line)
@@ -289,33 +292,55 @@ def _count_owners():
             ("ssd_bwd", ssd_ops, "bwd_launches"))
 
 
-#: the flash kernels' launches by route (``attention/ops.py::_route``):
-#: (kernel name, "wgmma" count, "simt" count), each also in the total
-ROUTE_COUNTS = (("flash_attention", "wgmma_launches", "simt_launches"),
-                ("flash_attention_bwd", "wgmma_bwd_launches",
-                 "simt_bwd_launches"))
+def _route_owners():
+    """(kernel name, module, {route: attribute}) of every kernel whose
+    launches are also counted by route: flash's (``attention/ops.py::
+    _route``) and the quadratic form's (chosen by R in ``quad_form.cuh``).
+    Each launch adds one to its route's count and to the kernel's total."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.bilinear import ops as bilinear_ops
+    from repro_torch.kernels.mcmc_score import ops as mcmc_score_ops
+
+    quad = {"resident": "resident_launches", "panel": "panel_launches"}
+    return (("flash_attention", attn_ops,
+             {"wgmma": "wgmma_launches", "simt": "simt_launches"}),
+            ("flash_attention_bwd", attn_ops,
+             {"wgmma": "wgmma_bwd_launches", "simt": "simt_bwd_launches"}),
+            ("score_all", mcmc_score_ops, quad),
+            ("bilinear", bilinear_ops, quad))
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels.attention import ops as attn_ops
-
     for _, mod, attr in _count_owners():
         setattr(mod, attr, 0)
-    for _, *attrs in ROUTE_COUNTS:
-        for attr in attrs:
-            setattr(attn_ops, attr, 0)
-
-
-def read_routes() -> dict:
-    """The flash kernels' launches by route since the last reset."""
-    from repro_torch.kernels.attention import ops as attn_ops
-
-    return {name: {"wgmma": getattr(attn_ops, w), "simt": getattr(attn_ops, s)}
-            for name, w, s in ROUTE_COUNTS}
+    for _, mod, attrs in _route_owners():
+        for attr in attrs.values():
+            setattr(mod, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: getattr(mod, attr) for name, mod, attr in _count_owners()}
+    """Every kernel's launches since the last reset, and those of the
+    kernels with routes by route, as "score_all.resident",
+    "flash_attention.wgmma", ..."""
+    counts = {name: getattr(mod, attr) for name, mod, attr in _count_owners()}
+    for name, mod, attrs in _route_owners():
+        for route, attr in attrs.items():
+            counts[f"{name}.{route}"] = getattr(mod, attr)
+    return counts
+
+
+def by_route(counts: dict, name: str) -> dict:
+    """Kernel ``name``'s launches by route out of ``read_counts()``."""
+    head = name + "."
+    return {k[len(head):]: v for k, v in counts.items() if k.startswith(head)}
+
+
+def route_delta(name: str, fn):
+    """``fn()``'s result and kernel ``name``'s launches by route in it."""
+    before = by_route(read_counts(), name)
+    out = fn()
+    after = by_route(read_counts(), name)
+    return out, {r: after[r] - before[r] for r in after}
 
 
 # ----------------------------------------------------------- the main path
@@ -864,7 +889,7 @@ def check_score_all(sp, captured, launches):
 
     def one(A, reps):
         c = A.shape[0]
-        got = ops.score_all(Z, A)
+        got, routes = route_delta("score_all", lambda: ops.score_all(Z, A))
         want = ref.score_all_ref(Z, A)
         torch.cuda.synchronize()
         # per chain: the greedy rounds' scores differ in scale by orders of
@@ -881,7 +906,9 @@ def check_score_all(sp, captured, launches):
         return {"C": c, "max_abs_err": float(err.max()),
                 "max_err_over_chain_max_score": float((err / scale).max()),
                 "max_abs_score_by_chain": scale.tolist(),
-                "ok": bool((err <= 1e-4 * scale).all()), "ms": ms,
+                "route_launches": routes,
+                "ok": bool((err <= 1e-4 * scale).all())
+                and routes == {"resident": 1, "panel": 0}, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                 "library_ms": library_ms}
 
@@ -890,8 +917,10 @@ def check_score_all(sp, captured, launches):
     return {"name": "score_all", "route": "cuda",
             "source": "src/repro_torch/csrc/mcmc_score.cu",
             "replaces": "src/repro/kernels/mcmc_score/mcmc_score.py:32",
+            "quad_route": "resident", "route_launches": c1["route_launches"],
             "launches": launches, "max_abs_err": c1["max_abs_err"],
-            "tolerance": "each chain within 1e-4 of its largest |score|",
+            "tolerance": "each chain within 1e-4 of its largest |score|; "
+                         "the resident route",
             "ok": c1["ok"] and c8["ok"], "ms": c1["ms"],
             "plain_ms": c1["plain_ms"], "bound_ms": c1["bound_ms"],
             "bound_by": c1["bound_by"], "library_ms": c1["library_ms"],
@@ -1261,7 +1290,7 @@ def check_bilinear(sp, mesh, launches):
         # float32 products run outside the tensor cores; bfloat16 ones,
         # accumulated in float32, at the tensor cores' rate
         rate = BF16_FLOP_PER_S if z.dtype == torch.bfloat16 else FP32_FLOP_PER_S
-        got = ops.bilinear(z, w)
+        got, routes = route_delta("bilinear", lambda: ops.bilinear(z, w))
         want = ref.bilinear_ref(z, w)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -1271,7 +1300,9 @@ def check_bilinear(sp, mesh, launches):
                         1.0 * mm * r * (r + 1) + 1.0 * r * r, rate)
         return {"M": mm, "dtype": str(z.dtype).replace("torch.", ""),
                 "max_abs_err": err, "max_err_over_max_score": err / scale,
-                "ok": err <= 1e-4 * scale,
+                "route_launches": routes,
+                "ok": (err <= 1e-4 * scale
+                       and routes == {"resident": 1, "panel": 0}),
                 "ms": cuda_ms(lambda: ops.bilinear(z, w), reps=reps),
                 "plain_ms": cuda_ms(lambda: ref.bilinear_ref(z, w), reps=reps),
                 "library_ms": cuda_ms(lambda: ((z @ w) * z).sum(-1),
@@ -1289,9 +1320,11 @@ def check_bilinear(sp, mesh, launches):
     return {"name": "bilinear", "route": "cuda",
             "source": "src/repro_torch/csrc/bilinear.cu",
             "replaces": "src/repro/kernels/bilinear/bilinear.py:65",
+            "quad_route": "resident", "route_launches": full["route_launches"],
             "launches": launches, "max_abs_err": full["max_abs_err"],
             "tolerance": "within 1e-4 of the largest |score| (bfloat16 "
-                         "inputs widen exactly); bilinear_sharded bit-equal",
+                         "inputs widen exactly); bilinear_sharded bit-equal; "
+                         "the resident route",
             "bilinear_sharded_bit_equal": sharded_equal,
             "ok": (full["ok"] and half["ok"] and bf16["ok"]
                    and sharded_equal),
@@ -1414,7 +1447,6 @@ def train_steps(cfg, seq, hook, track: str):
         lambda: float(step_fn(model, state, batch)[2]["loss"]), track)
     del batch
     launches = read_counts()
-    routes = read_routes()
     peak = torch.cuda.max_memory_allocated()
     del model, state
     gc.collect()
@@ -1427,7 +1459,7 @@ def train_steps(cfg, seq, hook, track: str):
     check(len(captured) == 1, f"layer 0's {attr} inputs were not recorded")
     return {"ocfg": ocfg, "init_s": init_s, "losses": losses,
             "grad_norms": gnorms, "step_ms": step_ms, "data_ms": data_ms,
-            "prof": prof, "launches": launches, "routes": routes,
+            "prof": prof, "launches": launches,
             "peak": peak, "captured": captured[0]}
 
 
@@ -1487,9 +1519,10 @@ def run_train():
                    cfg.n_layers * n_steps,
                    f"{cfg.n_layers} a step over {n_steps} steps")
     for name in ("flash_attention", "flash_attention_bwd"):
-        check(run["routes"][name]["wgmma"] == run["launches"][name],
+        routes = by_route(run["launches"], name)
+        check(routes["wgmma"] == run["launches"][name],
               f"{name}: not every launch of the train step took the wgmma "
-              f"route: {run['routes'][name]}")
+              f"route: {routes}")
     witness = train_witness(cfg, seq, run, (attn_ops, "mha", attn_ref.mha_ref),
                             "mha_ref under autograd", WITNESS_TOL)
     emit({"train": train_line(
@@ -1498,7 +1531,9 @@ def run_train():
         "N = matmul_params (the untied token table, a gather, left out); "
         "remat's recompute not counted",
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.head_dim, d_ff=cfg.d_ff, flash_routes=run["routes"])})
+        head_dim=cfg.head_dim, d_ff=cfg.d_ff, flash_routes={
+            n: by_route(run["launches"], n)
+            for n in ("flash_attention", "flash_attention_bwd")})})
     check(witness["ok"], f"the train run parted from its plain witness: "
                          f"{witness}")
     return run["captured"], run["launches"]
@@ -1775,11 +1810,6 @@ def flash_sass_has_hgmma() -> bool:
 SIMT_SEQ = 1024
 
 
-def _route_delta(before: dict, name: str) -> dict:
-    after = read_routes()[name]
-    return {r: after[r] - before[name][r] for r in after}
-
-
 def check_flash_simt(qkv, backward: bool) -> dict:
     """The SIMT kernels (the float32 route) on layer 0's q, k, v cut to
     batch 1 and SIMT_SEQ positions, in float32, against the plain version
@@ -1792,19 +1822,17 @@ def check_flash_simt(qkv, backward: bool) -> dict:
     scale = q.shape[-1] ** -0.5
     name = "flash_attention_bwd" if backward else "flash_attention"
     if not backward:
-        before = read_routes()
-        got, _, _ = ops.flash_forward(q, k, v, True, scale)
+        (got, _, _), routes = route_delta(
+            name, lambda: ops.flash_forward(q, k, v, True, scale))
         got, want = [got], [ref.mha_ref(q, k, v)]
-        routes = _route_delta(before, name)
         ms = cuda_ms(lambda: ops.flash_forward(q, k, v, True, scale), reps=5)
     else:
         gen = torch.Generator(device=q.device)
         gen.manual_seed(SEED + 1)
         dout = torch.randn(q.shape, generator=gen, device=q.device)
         _, lse, o32 = ops.flash_forward(q, k, v, True, scale)
-        before = read_routes()
-        got = ops.flash_backward(q, k, v, o32, lse, dout, True, scale)
-        routes = _route_delta(before, name)
+        got, routes = route_delta(name, lambda: ops.flash_backward(
+            q, k, v, o32, lse, dout, True, scale))
         qf, kf, vf = (x.clone().requires_grad_(True) for x in (q, k, v))
         want = torch.autograd.grad(ref.mha_ref(qf, kf, vf), (qf, kf, vf),
                                    dout)
@@ -1834,9 +1862,8 @@ def check_flash_attention(qkv, launches, hgmma: bool):
     q, k, v = qkv
     scale = q.shape[-1] ** -0.5
     s = q.shape[2]
-    before = read_routes()
-    o, lse, o32 = ops.flash_forward(q, k, v, True, scale)
-    routes = _route_delta(before, "flash_attention")
+    (o, lse, o32), routes = route_delta(
+        "flash_attention", lambda: ops.flash_forward(q, k, v, True, scale))
     rounded = bool(torch.equal(o, o32.to(o.dtype)))
     want = ref.mha_ref(q.float(), k.float(), v.float())
     want_lse = ref.mha_lse_ref(q, k, v)
@@ -1910,9 +1937,9 @@ def check_flash_attention_bwd(qkv, launches, hgmma: bool):
     gen.manual_seed(SEED)
     dout = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
     _, lse, o32 = ops.flash_forward(q, k, v, True, scale)
-    before = read_routes()
-    dq, dk, dv = ops.flash_backward(q, k, v, o32, lse, dout, True, scale)
-    routes = _route_delta(before, "flash_attention_bwd")
+    (dq, dk, dv), routes = route_delta(
+        "flash_attention_bwd",
+        lambda: ops.flash_backward(q, k, v, o32, lse, dout, True, scale))
     qf, kf, vf = (x.float().requires_grad_(True) for x in (q, k, v))
     want = torch.autograd.grad(ref.mha_ref(qf, kf, vf), (qf, kf, vf),
                                dout.float())
@@ -2273,6 +2300,12 @@ def main() -> int:
     for e in entries:
         e["launches_by_path"] = {p: c[e["name"]] for p, c in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())
+        routes = [by_route(c, e["name"]) for c in by_path.values()]
+        if routes[0]:  # the paths' launches by route
+            e["launches_by_route"] = {rt: sum(r[rt] for r in routes)
+                                      for rt in routes[0]}
+            e["ok"] = e["ok"] and (sum(e["launches_by_route"].values())
+                                   == e["launches"])
         e["ms_over_bound"] = e["ms"] / e["bound_ms"]
         if e["library_ms"] is not None:
             e["ms_over_library"] = e["ms"] / e["library_ms"]

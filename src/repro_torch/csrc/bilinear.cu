@@ -34,11 +34,15 @@
 // bilinear replaces bilinear_pallas (_bilinear_kernel): p[m] =
 // z_m^T W z_m over the rows of Z (M, R) against one R x R matrix, float32
 // or bfloat16 inputs, float32 accumulation and output.  It is score_all at
-// C = 1: quad_form.cuh's tile, whose per-row arithmetic does not depend on
-// M or on the row's place, so bilinear_sharded's slices are bit-equal to
-// one call over all rows.  Bound: operations, M R(R+1) + R^2 FLOP (42.2
-// GFLOP, 0.63 ms at M = 2^20, R = 200) against (M R + R^2 + M) floats read
-// and written (0.84 GB, 0.25 ms); the tile does the full 2 M R^2.
+// C = 1: quad_form.cuh's kernel, the resident route up to R = 224 (the
+// upper triangle of W + W^T held in shared memory, Z streamed through
+// persistent CTAs), the panel route above; per-row arithmetic does not
+// depend on M or on the row's place, so bilinear_sharded's slices are
+// bit-equal to one call over all rows.  Bound: operations, M R(R+1) + R^2
+// FLOP (42.2 GFLOP, 0.63 ms at M = 2^20, R = 200) against (M R + R^2) input
+// elements and M float32 outputs (0.84 GB in float32, 0.25 ms; in bfloat16
+// 0.42 GB, 0.13 ms, under the FMAs all the same: bfloat16 is widened
+// before any arithmetic).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -216,8 +220,8 @@ extern "C" int bilinear_batched_launch(const float* Z, const float* Q,
 
 // Z: (M, R), W: (R, R), both float32 (bf16 == 0) or both bfloat16
 // (bf16 == 1); out: (M,) float32; all contiguous on the current device.
-// Launches on `stream`; returns the cudaError_t of the set-up or the
-// launch.
+// Launches on `stream` on the route bilinear_route(R) gives; returns the
+// cudaError_t of the set-up or the launch.
 extern "C" int bilinear_launch(const void* Z, const void* W, float* out,
                                long long M, int R, int bf16, void* stream) {
   if (bf16)
@@ -227,4 +231,9 @@ extern "C" int bilinear_launch(const void* Z, const void* W, float* out,
   return repro_torch::quad_form_launch<float>(
       static_cast<const float*>(Z), static_cast<const float*>(W), out, M, 1,
       R, stream);
+}
+
+// The route bilinear_launch takes at width R: 1 "resident", 0 "panel".
+extern "C" int bilinear_route(int R) {
+  return repro_torch::quad_form_route(R);
 }

@@ -10,61 +10,17 @@
 // rounds once, after the exact product, and Wb[r][i] * Wb[r][j] ==
 // Wb[r][j] * Wb[r][i], so entry (j, i) may be written as a copy of (i, j).
 //
-// Two routines run the chain:
-// - block_gram_tile: one 32 x 32 tile a CTA of 32 x 8 threads, 4 entries a
-//   thread, both operands from shared memory for every FMA
-//   (gathered_block_grams);
-// - gram_tile_8x8 on rows staged by gram_stage_rows: one 8 x 8 register
-//   tile a thread, the upper triangle of tiles only (gram_tri_tile), 16
-//   floats loaded a row for 64 FMAs (block_outer_sums).
+// gram_stage_rows, gram_tri_tile and gram_tile_8x8 below run the chain as
+// block_outer_sums_kernel (tree_sum.cu) schedules it for both of its entry
+// points, block_outer_sums and gathered_block_grams: one 8 x 8 register
+// tile a thread, the upper triangle of tiles only, 16 floats loaded a row
+// for 64 FMAs.
 #pragma once
 
 #include "cp_async.cuh"
 
 namespace repro_torch {
 
-constexpr int kGramTile = 32;       // output tile edge
-constexpr int kGramRowsY = 8;       // threadIdx.y extent: 4 outputs a thread
-constexpr int kGramChunk = 32;      // rows staged in shared memory per pass
-
-// Must be called by all kGramTile x kGramRowsY threads of the CTA.
-// wb: the block's first row; out: the block's R x R output; (i0, j0): the
-// tile's top-left entry.
-__device__ __forceinline__ void block_gram_tile(
-    const float* __restrict__ wb, int block, int R, int i0, int j0,
-    float* __restrict__ out) {
-  __shared__ float sa[kGramChunk][kGramTile + 1];
-  __shared__ float sb[kGramChunk][kGramTile + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  float acc[kGramTile / kGramRowsY] = {0.f, 0.f, 0.f, 0.f};
-  for (int r0 = 0; r0 < block; r0 += kGramChunk) {
-    const int rows = min(kGramChunk, block - r0);
-    for (int r = ty; r < rows; r += kGramRowsY) {
-      const float* src = wb + (long long)(r0 + r) * R;
-      sa[r][tx] = (i0 + tx < R) ? src[i0 + tx] : 0.f;
-      sb[r][tx] = (j0 + tx < R) ? src[j0 + tx] : 0.f;
-    }
-    __syncthreads();
-    for (int r = 0; r < rows; ++r) {
-      const float b = sb[r][tx];
-#pragma unroll
-      for (int k = 0; k < kGramTile / kGramRowsY; ++k)
-        acc[k] = fmaf(sa[r][ty + kGramRowsY * k], b, acc[k]);
-    }
-    __syncthreads();
-  }
-  const int j = j0 + tx;
-  if (j < R) {
-#pragma unroll
-    for (int k = 0; k < kGramTile / kGramRowsY; ++k) {
-      const int i = i0 + ty + kGramRowsY * k;
-      if (i < R) out[(long long)i * R + j] = acc[k];
-    }
-  }
-}
-
-// ---------------------------------------------------- register-tiled form
-//
 // Columns are grouped in T = ceil(R / 8) tiles of 8; tile t is columns
 // 8t .. 8t+7.  A staged row holds 8T floats as two halves of T float4s:
 // half h, float4 t is columns 8t + 4h .. 8t + 4h + 3 (zero past R).  So the

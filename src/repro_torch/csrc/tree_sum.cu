@@ -1,43 +1,41 @@
 // block_outer_sums and gathered_block_grams: leaf Grams of the flat
-// sample tree on Hopper.
+// sample tree on Hopper, both run by one kernel.
 //
 // block_outer_sums replaces the TPU kernel repro/kernels/tree_sum/
 // tree_sum.py::block_outer_sums_pallas (_tree_sum_kernel): for every leaf
 // block n of `block` consecutive rows of W (n_blocks*block, R),
 // Sigma_n = W_n^T W_n.
 //
-// Bound on the H100: bytes.  Sigma_n is symmetric, so the work is
-// n_blocks * block * R(R+1) FLOP against (n_blocks*block*R +
-// n_blocks*R^2) * 4 bytes; at the main path's shape (16,384 blocks of 64
-// rows, R = 200) that is 42 GFLOP, 0.63 ms at the 67 TFLOP/s fp32 peak,
-// against 3.46 GB, 1.03 ms at 3.35 TB/s.  The output (2.6 GB) is larger
-// than the input (0.84 GB).
+// gathered_block_grams replaces gathered_block_grams_pallas
+// (_gathered_gram_kernel): the Grams of only the blocks named by an index
+// vector blks, the dynamic catalog's row update.  The TPU kernel gathers
+// its block by scalar prefetch; here CTA i loads blks[i] itself and runs
+// block_outer_sums' CTA on that block, writing output i (the kernel's
+// kGather instance).  The schedule and every chain are the same, so a
+// recomputed block is bit-equal to the same block of block_outer_sums (the
+// catalog's tree stays bit-equal to a rebuild).  An id outside
+// [0, n_blocks) makes its CTA write an all-NaN Gram without reading W.
 //
-// Design: one CTA of 128 threads per leaf block.  The block's rows are
+// Bound on the H100: bytes.  Sigma_n is symmetric, so the work is
+// block * R(R+1) FLOP a block against (block*R + R^2) * 4 bytes; at the
+// main path's shape (16,384 blocks of 64 rows, R = 200) that is 42 GFLOP,
+// 0.63 ms at the 67 TFLOP/s fp32 peak, against 3.46 GB, 1.03 ms at
+// 3.35 TB/s (the output, 2.6 GB, is larger than the input); at the
+// catalog's (1,024 gathered blocks) 2.6 GFLOP, 39 us, against 216 MB,
+// 65 us.
+//
+// Design: one CTA of 128 threads per output block.  The block's rows are
 // staged in shared memory once (cp.async, 51 KB at 64 x 200), and each
 // thread owns 8 x 8 register tiles of the upper triangle only
 // (gram_tile_8x8 in gram.cuh: two 16-byte loads of its rows' and two of
 // its columns' values a row, 64 FMAs), so it does the triangle's FMAs and
-// not both halves, and reads shared memory once for 4 FMAs where a
-// 32 x 32 tile of 4 entries a thread read it once per FMA.  A tile is
-// written twice, as itself and mirrored (bit-exact: gram.cuh); when
-// R % 8 == 0 every 8-float row of a tile is one 32-byte sector, and two
-// neighbouring threads swap halves by shuffle so that each 16-byte store
-// instruction fills whole sectors.  Float32 FMA only: TF32 (or 3xTF32 on
-// the tensor cores) would change the bits that gathered_block_grams must
-// reproduce.  Four CTAs fit an SM, so one block's stores overlap the
-// others' loads and FMAs.
-//
-// gathered_block_grams replaces gathered_block_grams_pallas
-// (_gathered_gram_kernel): the Grams of only the blocks named by an index
-// vector, the dynamic catalog's row update.  The TPU kernel gathers its
-// block by scalar prefetch; here each CTA loads its own block id.  Each
-// CTA owns one (index i, 32 x 32 tile) and runs block_gram_tile on block
-// blks[i]: the same chain as block_outer_sums in another schedule, so a
-// recomputed block is bit-equal to the same block of block_outer_sums (the
-// catalog's tree stays bit-equal to a rebuild).  Bound: bytes,
-// nb * (block*R + R^2) * 4 (216 MB, 65 us at 3.35 TB/s for 1,024 blocks of
-// 64 rows at R = 200), against nb * block * R(R+1) FLOP (2.6 GFLOP, 39 us).
+// not both halves.  A tile is written twice, as itself and mirrored
+// (bit-exact: gram.cuh); when R % 8 == 0 every 8-float row of a tile is
+// one 32-byte sector, and two neighbouring threads swap halves by shuffle
+// so that each 16-byte store instruction fills whole sectors.  Float32
+// FMA only: TF32 (or 3xTF32 on the tensor cores) would change the bits
+// that the two entry points must share.  Four CTAs fit an SM, so one
+// block's stores overlap the others' loads and FMAs.
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -76,19 +74,29 @@ __device__ __forceinline__ void paired_store(float* own, float* par,
   if (odd ? w_own : w_par) *reinterpret_cast<float4*>(d2) = s2;
 }
 
-// One CTA per leaf block.  T = ceil(R / 8) column tiles; chunk: rows staged
-// a pass (all of the block when block <= chunk).  vec_in: R % 4 == 0 and
-// W 16-byte aligned; vec_out: R % 8 == 0 and out 32-byte aligned.
+// One CTA per output block i = blockIdx.x: leaf block i, or with kGather
+// leaf block blks[i] (an id outside [0, n_blocks) gives a NaN Gram).
+// T = ceil(R / 8) column tiles; chunk: rows staged a pass (all of the block
+// when block <= chunk).  vec_in: R % 4 == 0 and W 16-byte aligned;
+// vec_out: R % 8 == 0 and out 32-byte aligned.
+template <bool kGather>
 __global__ void __launch_bounds__(kOuterThreads, 4)
-block_outer_sums_kernel(const float* __restrict__ W, float* __restrict__ out,
+block_outer_sums_kernel(const float* __restrict__ W,
+                        const long long* __restrict__ blks,
+                        long long n_blocks, float* __restrict__ out,
                         int block, int R, int T, int chunk, bool vec_in,
                         bool vec_out) {
   using repro_torch::kGramReg;
   extern __shared__ float4 outer_smem[];
   float* s = reinterpret_cast<float*>(outer_smem);
-  const long long n = blockIdx.x;
+  const long long n = kGather ? blks[blockIdx.x] : (long long)blockIdx.x;
+  float* ob = out + (long long)blockIdx.x * R * R;
+  if (kGather && (n < 0 || n >= n_blocks)) {  // never read outside W
+    for (long long e = threadIdx.x; e < (long long)R * R; e += kOuterThreads)
+      ob[e] = nanf("");
+    return;
+  }
   const float* wb = W + n * block * R;
-  float* ob = out + n * R * R;
   const int n_tiles = T * (T + 1) / 2;
   const bool once = block <= chunk;
   if (once) {
@@ -152,39 +160,18 @@ block_outer_sums_kernel(const float* __restrict__ W, float* __restrict__ out,
   }
 }
 
-__global__ void __launch_bounds__(repro_torch::kGramTile * repro_torch::kGramRowsY)
-gathered_block_grams_kernel(const float* __restrict__ W,
-                            const long long* __restrict__ blks,
-                            float* __restrict__ out, long long n_blocks,
-                            int block, int R, int tiles) {
-  const long long cta = blockIdx.x;
-  const long long i = cta / (tiles * tiles);
-  const int t = (int)(cta % (tiles * tiles));
-  const int i0 = (t / tiles) * repro_torch::kGramTile;
-  const int j0 = (t % tiles) * repro_torch::kGramTile;
-  const long long b = blks[i];
-  float* o = out + i * R * R;
-  if (b < 0 || b >= n_blocks) {  // never read outside W: a visible NaN Gram
-    for (int r = threadIdx.y; r < repro_torch::kGramTile; r += repro_torch::kGramRowsY) {
-      const int ii = i0 + r, jj = j0 + threadIdx.x;
-      if (ii < R && jj < R) o[(long long)ii * R + jj] = nanf("");
-    }
-    return;
-  }
-  repro_torch::block_gram_tile(W + b * block * R, block, R, i0, j0, o);
-}
-
 }  // namespace
 
-// W: (n_blocks * block, R) float32, out: (n_blocks, R, R) float32, both
-// contiguous on the current device.  Launches on `stream`; returns the
-// cudaError_t of the launch.
-extern "C" int block_outer_sums_launch(const float* W, float* out,
-                                       long long n_blocks, int block, int R,
-                                       void* stream) {
-  if (n_blocks <= 0) return cudaSuccess;
+// Grams of nb blocks of W (n_blocks * block, R) float32 into out (nb, R, R)
+// float32: block i when blks is null (nb == n_blocks), else block blks[i].
+// All on the current device, contiguous; launches on `stream` and returns
+// the cudaError_t of the set-up or the launch.
+static int outer_sums_launch(const float* W, const long long* blks,
+                             float* out, long long nb, long long n_blocks,
+                             int block, int R, void* stream) {
+  if (nb <= 0) return cudaSuccess;
   if (block <= 0 || R <= 0) return cudaErrorInvalidValue;
-  if (n_blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  if (nb > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   const int T = repro_torch::gram_col_tiles(R);
   const long long row_bytes = 8LL * T * sizeof(float);
   const int chunk = (int)std::min<long long>(
@@ -194,14 +181,25 @@ extern "C" int block_outer_sums_launch(const float* W, float* out,
   const bool vec_in = R % 4 == 0 && reinterpret_cast<uintptr_t>(W) % 16 == 0;
   const bool vec_out =
       R % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 32 == 0;
+  auto kernel = blks ? block_outer_sums_kernel<true>
+                     : block_outer_sums_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      block_outer_sums_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  block_outer_sums_kernel<<<(unsigned)n_blocks, kOuterThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      W, out, block, R, T, chunk, vec_in, vec_out);
+  kernel<<<(unsigned)nb, kOuterThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      W, blks, n_blocks, out, block, R, T, chunk, vec_in, vec_out);
   return cudaGetLastError();
+}
+
+// W: (n_blocks * block, R) float32, out: (n_blocks, R, R) float32, both
+// contiguous on the current device.  Launches on `stream`; returns the
+// cudaError_t of the launch.
+extern "C" int block_outer_sums_launch(const float* W, float* out,
+                                       long long n_blocks, int block, int R,
+                                       void* stream) {
+  return outer_sums_launch(W, nullptr, out, n_blocks, n_blocks, block, R,
+                           stream);
 }
 
 // W: (n_blocks * block, R) float32, blks: (nb,) int64 block ids, out:
@@ -211,14 +209,5 @@ extern "C" int gathered_block_grams_launch(const float* W,
                                            const long long* blks, float* out,
                                            long long nb, long long n_blocks,
                                            int block, int R, void* stream) {
-  if (nb <= 0) return cudaSuccess;
-  if (block <= 0 || R <= 0) return cudaErrorInvalidValue;
-  const int tiles = (R + repro_torch::kGramTile - 1) / repro_torch::kGramTile;
-  const long long grid = nb * tiles * tiles;
-  if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  dim3 threads(repro_torch::kGramTile, repro_torch::kGramRowsY);
-  gathered_block_grams_kernel<<<(unsigned)grid, threads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      W, blks, out, n_blocks, block, R, tiles);
-  return cudaGetLastError();
+  return outer_sums_launch(W, blks, out, nb, n_blocks, block, R, stream);
 }

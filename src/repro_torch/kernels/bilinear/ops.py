@@ -5,6 +5,9 @@ all rows), ``bilinear_sharded`` (the same over a mesh) and
 
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
 launches ``csrc/bilinear.cu`` or raises — there is no fallback.
+``bilinear``'s kernel (``csrc/quad_form.cuh``, shared with ``score_all``)
+has two routes, which the CUDA source chooses by R alone: "resident" up to
+R = 224, "panel" above.
 """
 from __future__ import annotations
 
@@ -16,8 +19,9 @@ from .. import _build
 from ...models import sharding as msh
 from .ref import bilinear_batched_ref, bilinear_ref
 
-#: the largest R ``bilinear`` takes: quad_form.cuh stages a 64-row tile and
-#: a 32-column panel of W in float32 (400 R bytes of shared memory)
+#: the largest R ``bilinear`` takes: quad_form.cuh's panel route stages a
+#: 64-row tile and a 32-column panel of W in float32 (400 R bytes of shared
+#: memory)
 MAX_R = 512
 
 #: the largest R ``bilinear_batched`` takes: csrc/bilinear.cu stages a CTA's
@@ -28,18 +32,25 @@ BATCHED_MAX_R = 1816
 #: one per shard) since the count was last set to 0; plain-version calls
 #: on CPU tensors do not count
 launches = 0
+#: ``bilinear``'s launches by route (``bilinear_route`` in the CUDA source):
+#: each launch adds one to its route's count and to ``launches``
+resident_launches = 0
+panel_launches = 0
 #: the same count for ``bilinear_batched``
 batched_launches = 0
 
 
 def _lib():
+    """The launcher and the route it takes at a width R (1 "resident")."""
     lib = _build.load("bilinear")
     fn = lib.bilinear_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    route = lib.bilinear_route
+    route.argtypes, route.restype = [ctypes.c_int], ctypes.c_int
+    return fn, route
 
 
 def _batched_lib():
@@ -77,13 +88,19 @@ def bilinear(Z: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     if not (Z.is_contiguous() and W.is_contiguous()):
         raise ValueError("Z and W must be contiguous")
     out = torch.empty(m, dtype=torch.float32, device=dev)
-    fn = _lib()
+    fn, route_of = _lib()
+    route = "resident" if route_of(r) else "panel"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(fn(Z.data_ptr(), W.data_ptr(), out.data_ptr(), m, r,
-                        int(Z.dtype == torch.bfloat16), stream), "bilinear")
-    global launches
+                        int(Z.dtype == torch.bfloat16), stream),
+                     f"bilinear ({route})")
+    global launches, resident_launches, panel_launches
     launches += 1
+    if route == "resident":
+        resident_launches += 1
+    else:
+        panel_launches += 1
     return out
 
 

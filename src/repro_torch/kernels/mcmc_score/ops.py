@@ -3,7 +3,9 @@
 versions ``score_all_sharded`` and ``score_argmax_sharded``.
 
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
-launches ``csrc/mcmc_score.cu`` or raises — there is no fallback.
+launches ``csrc/mcmc_score.cu`` or raises — there is no fallback.  The
+kernel (``csrc/quad_form.cuh``) has two routes, which the CUDA source
+chooses by R alone: "resident" up to R = 224, "panel" above.
 """
 from __future__ import annotations
 
@@ -15,14 +17,18 @@ from .. import _build
 from ...models import sharding as msh
 from .ref import score_all_ref
 
-#: the largest R the kernel takes: a 64-row tile of Z and a 32-column panel
-#: of A_c (400 R bytes) must fit in one CTA's shared memory
+#: the largest R the kernel takes: its panel route stages a 64-row tile of
+#: Z and a 32-column panel of A_c (400 R bytes) in one CTA's shared memory
 MAX_R = 512
 
 #: launches of the CUDA kernel by ``score_all`` (one per shard in the
 #: sharded scorers) since the count was last set to 0 (plain-version calls
 #: on CPU tensors do not count)
 launches = 0
+#: the same count by route (``score_all_route`` in the CUDA source): each
+#: launch adds one to its route's count and to the total above
+resident_launches = 0
+panel_launches = 0
 
 
 def _lib():
@@ -32,7 +38,9 @@ def _lib():
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    route = lib.score_all_route
+    route.argtypes, route.restype = [ctypes.c_int], ctypes.c_int
+    return fn, route
 
 
 def score_all(Z: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
@@ -63,13 +71,19 @@ def score_all(Z: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor")
     out = torch.empty((c, m), dtype=torch.float32, device=dev)
-    fn = _lib()
+    fn, route_of = _lib()
+    route = "resident" if route_of(r) else "panel"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(fn(Z.data_ptr(), A.data_ptr(), out.data_ptr(), m, c, r,
-                        stream), "score_all")
-    global launches
+                        stream),
+                     f"score_all ({route})")
+    global launches, resident_launches, panel_launches
     launches += 1
+    if route == "resident":
+        resident_launches += 1
+    else:
+        panel_launches += 1
     return out
 
 

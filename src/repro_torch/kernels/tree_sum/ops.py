@@ -81,11 +81,11 @@ def block_outer_sums(W: torch.Tensor, block: int,
 def gathered_block_grams(W: torch.Tensor, blks: torch.Tensor,
                          block: int) -> torch.Tensor:
     """Grams of the leaf blocks named by ``blks`` only: W (n*block, R)
-    float32, blks (nb,) integer block ids in [0, n) -> (nb, R, R).  The
-    kernel runs ``block_outer_sums``'s contraction (``csrc/gram.cuh``), so a
-    recomputed block is bit-equal to the same block of a full build;
-    repeated ids compute the same Gram again.  An id out of range yields a
-    NaN Gram on the card (the kernel never reads outside W)."""
+    float32, blks (nb,) integer block ids in [0, n) -> (nb, R, R).  On the
+    card ``block_outer_sums``'s kernel runs on the named blocks, one CTA a
+    block, so a recomputed block is bit-equal to the same block of a full
+    build; repeated ids compute the same Gram again.  An id out of range
+    yields a NaN Gram on the card (the kernel never reads outside W)."""
     m, r = W.shape
     if block <= 0 or m % block:
         raise ValueError(f"row count {m} is not a multiple of block {block}")

@@ -148,10 +148,16 @@ def test_card_draws_match_cpu_draws(cuda):
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
 
 
-@pytest.mark.parametrize("n,block,r", [(5, 4, 8), (9, 5, 33), (7, 13, 130),
-                                       (64, 64, 200)])
+# kernel 4 runs kernel 2's CTA on each named block: the same R, block and
+# block-count edges, and block 130 (two chunked passes of 64 rows)
+_GATHERED_CASES = [(5, 4, 8), (9, 5, 33), (7, 13, 130), (64, 64, 200)] + [
+    (n, block, r) for r in _EDGE_R for block in _EDGE_ROWS + (130,)
+    for n in _EDGE_N]
+
+
+@pytest.mark.parametrize("n,block,r", _GATHERED_CASES)
 def test_gathered_block_grams_kernel(cuda, n, block, r):
-    rng = np.random.default_rng(n * 10 + r)
+    rng = np.random.default_rng(n * 10 + block * 1000 + r)
     w = torch.as_tensor(rng.normal(size=(n * block, r)).astype(np.float32),
                         device=cuda)
     blks = torch.as_tensor(np.concatenate([rng.integers(0, n, size=2 * n),
@@ -165,6 +171,23 @@ def test_gathered_block_grams_kernel(cuda, n, block, r):
     want = gathered_block_grams_ref(w, blks, block)
     torch.testing.assert_close(got, want, rtol=1e-5,
                                atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("block,r", [(4, 8), (64, 200), (130, 33)])
+def test_gathered_block_grams_bad_ids_give_nan(cuda, block, r):
+    """Ids -1 and n give all-NaN Grams (the kernel reads nothing outside
+    W); the valid ids of the same call stay bit-equal to the full build."""
+    n = 6
+    rng = np.random.default_rng(block + r)
+    w = torch.as_tensor(rng.normal(size=(n * block, r)).astype(np.float32),
+                        device=cuda)
+    blks = torch.as_tensor([2, -1, 0, n, 5, 2], device=cuda)
+    got = tree_sum_ops.gathered_block_grams(w, blks, block)
+    torch.cuda.synchronize()
+    bad = torch.tensor([False, True, False, True, False, False])
+    assert bool(torch.isnan(got[bad.to(cuda)]).all())
+    full = tree_sum_ops.block_outer_sums(w, block)
+    assert torch.equal(got[~bad.to(cuda)], full[blks[~bad.to(cuda)]])
 
 
 def test_update_rows_on_card_bit_equal_to_rebuild(cuda):
@@ -189,21 +212,68 @@ def test_update_rows_on_card_bit_equal_to_rebuild(cuda):
     assert torch.equal(live.W, rebuilt.W)
 
 
-@pytest.mark.parametrize("c,m,r", [(1, 1, 8), (1, 100, 33), (3, 1000, 130),
-                                   (8, 4097, 200), (2, 64, 512)])
+# The quadratic form's edges: R at its resident limit (224) and one above
+# (the panel route), widths around its 8-column tiles; M of one row, around
+# the 64-row tile, and not a multiple of it; C of one chain, a few, and more
+# chains than SMs.
+_QUAD_R = (1, 8, 33, 130, 200, 224, 225, 512)
+_QUAD_M = (1, 63, 65, 1000, 4097)
+#: the widest R of the resident route (quad_form.cuh's kQuadResidentMaxR)
+_RESIDENT_MAX_R = 224
+#: the first port's cases, which keep its check
+_FIRST_SCORE_CASES = [(1, 1, 8), (1, 100, 33), (3, 1000, 130),
+                      (8, 4097, 200), (2, 64, 512)]
+_SCORE_CASES = _FIRST_SCORE_CASES + [
+    (c, m, r) for r in _QUAD_R for m in _QUAD_M for c in (1, 3)] + [
+    (c, m, r) for r in (200, 225) for c in (8, 200) for m in (65, 1000)]
+
+
+def _route_counts(mod):
+    return mod.launches, mod.resident_launches, mod.panel_launches
+
+
+def _assert_one_launch_on_route(mod, before, r):
+    """One launch since ``before``, counted in the total and in the route
+    that R alone chooses."""
+    resident = r <= _RESIDENT_MAX_R
+    n, res, pan = before
+    assert _route_counts(mod) == (n + 1, res + resident, pan + (not resident))
+
+
+def _rows_to_64(rng, z):
+    """z and, below 64 rows, further normal rows up to 64 (z's dtype)."""
+    more = rng.normal(size=(64 - z.shape[0], z.shape[1]))
+    return torch.cat([z, torch.as_tensor(more, device=z.device).to(z.dtype)])
+
+
+@pytest.mark.parametrize("c,m,r", _SCORE_CASES)
 def test_score_all_kernel(cuda, c, m, r):
+    """One launch, on the route R gives, within 1e-4 of each chain's
+    largest |score|.  Below 64 rows (a single random row can cancel to
+    ~1e-4 of its terms' scale, below what any float32 sum meets) that
+    holds over 64 drawn rows, the first m of them the rows scored, which
+    equal the same rows of the 64-row call, bit for bit; the first port's
+    cases there also keep its check of the rows scored."""
     rng = np.random.default_rng(c * 1000 + m + r)
     z = torch.as_tensor(rng.normal(size=(m, r)).astype(np.float32),
                         device=cuda)
     a = torch.as_tensor(rng.normal(size=(c, r, r)).astype(np.float32),
                         device=cuda)
-    before = score_ops.launches
+    before = _route_counts(score_ops)
     got = score_ops.score_all(z, a)
     torch.cuda.synchronize()
-    assert score_ops.launches == before + 1
+    _assert_one_launch_on_route(score_ops, before, r)
     want = score_all_ref(z, a)
-    torch.testing.assert_close(got, want, rtol=1e-4,
-                               atol=1e-4 * float(want.abs().max()))
+    if m < 64:
+        if (c, m, r) in _FIRST_SCORE_CASES:
+            torch.testing.assert_close(got, want, rtol=1e-4,
+                                       atol=1e-4 * float(want.abs().max()))
+        z64 = _rows_to_64(rng, z)
+        got64 = score_ops.score_all(z64, a)
+        assert torch.equal(got, got64[:, :m])
+        got, want = got64, score_all_ref(z64, a)
+    scale = want.abs().amax(dim=1, keepdim=True)
+    assert bool(((got - want).abs() <= 1e-4 * scale).all())
 
 
 def test_score_all_refuses_wide_r(cuda):
@@ -273,20 +343,58 @@ def test_bilinear_batched_equals_descend_score_leaf(cuda, depth, block, r, n):
     assert torch.equal(bilinear_ops.bilinear_batched(w[rows], q), raw)
 
 
-@pytest.mark.parametrize("m,r", [(1, 8), (100, 33), (4097, 200), (64, 512)])
+_FIRST_BILINEAR_CASES = [(1, 8), (100, 33), (4097, 200), (64, 512)]
+_BILINEAR_CASES = _FIRST_BILINEAR_CASES + [
+    (m, r) for r in _QUAD_R for m in _QUAD_M]
+
+
+@pytest.mark.parametrize("m,r", _BILINEAR_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bilinear_kernel(cuda, m, r, dtype):
+    """One launch, on the route R gives, within 1e-4 of the largest |score|
+    (and of each score); below 64 rows over 64 drawn rows, as in
+    ``test_score_all_kernel``."""
     rng = np.random.default_rng(m + r)
     z = torch.as_tensor(rng.normal(size=(m, r)), device=cuda).to(dtype)
     w = torch.as_tensor(rng.normal(size=(r, r)), device=cuda).to(dtype)
-    before = bilinear_ops.launches
+    before = _route_counts(bilinear_ops)
     got = bilinear_ops.bilinear(z, w)
     torch.cuda.synchronize()
-    assert bilinear_ops.launches == before + 1 and got.dtype == torch.float32
+    _assert_one_launch_on_route(bilinear_ops, before, r)
+    assert got.dtype == torch.float32
     # bfloat16 inputs widen exactly to float32: the same tolerance holds
     want = bilinear_ref(z, w)
+    if m < 64:
+        if (m, r) in _FIRST_BILINEAR_CASES:
+            torch.testing.assert_close(got, want, rtol=1e-4,
+                                       atol=1e-4 * float(want.abs().max()))
+        z64 = _rows_to_64(rng, z)
+        got64 = bilinear_ops.bilinear(z64, w)
+        assert torch.equal(got, got64[:m])
+        got, want = got64, bilinear_ref(z64, w)
     torch.testing.assert_close(got, want, rtol=1e-4,
                                atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("r", [7, 33, 200, 224, 225])
+@pytest.mark.parametrize("scorer", ["score_all", "bilinear", "bilinear_bf16"])
+def test_quad_form_slices_bit_equal_to_the_whole(cuda, scorer, r):
+    """A row's score does not depend on where it sits: rows a..b-1 scored
+    alone, a and b not multiples of the 64-row tile (so every row lands in
+    another tile slot, and Z's start moves off 16 bytes when R is odd),
+    equal the same rows of one call over all rows, bit for bit."""
+    rng = np.random.default_rng(r)
+    m, a, b = 1000, 37, 811
+    dtype = torch.bfloat16 if scorer == "bilinear_bf16" else torch.float32
+    z = torch.as_tensor(rng.normal(size=(m, r)), device=cuda).to(dtype)
+    w = torch.as_tensor(rng.normal(size=(3, r, r)), device=cuda).to(dtype)
+    if scorer == "score_all":
+        whole, part = score_ops.score_all(z, w), score_ops.score_all(z[a:b], w)
+        assert torch.equal(part, whole[:, a:b])
+    else:
+        whole = bilinear_ops.bilinear(z, w[0])
+        part = bilinear_ops.bilinear(z[a:b], w[0])
+        assert torch.equal(part, whole[a:b])
 
 
 def test_bilinear_refuses_mixed_dtypes_and_wide_r(cuda):

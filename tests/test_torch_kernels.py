@@ -100,3 +100,24 @@ def test_shallow_max_matches_reference():
     from repro.kernels.spec_round import ref as jax_spec_ref
 
     assert spec_ref._SHALLOW_MAX == jax_spec_ref._SHALLOW_MAX
+
+
+@pytest.mark.parametrize("r", [8, 225])
+def test_quad_form_cpu_tensors_take_the_plain_versions(r):
+    """``score_all`` and ``bilinear`` share ``csrc/quad_form.cuh``: on CPU
+    tensors, at widths on either side of its resident route's limit (224),
+    both go to their plain versions, agree with each other at C = 1, and
+    move neither the total nor any route's launch count."""
+    from repro_torch.kernels.bilinear import ops as bilinear_ops
+    from repro_torch.kernels.mcmc_score import ops as score_ops
+
+    assert score_ops.MAX_R == bilinear_ops.MAX_R == 512
+    rng = np.random.default_rng(0)
+    z = torch.as_tensor(rng.normal(size=(5, r)).astype(np.float32))
+    a = torch.as_tensor(rng.normal(size=(2, r, r)).astype(np.float32))
+    counts = [(m.launches, m.resident_launches, m.panel_launches)
+              for m in (score_ops, bilinear_ops)]
+    torch.testing.assert_close(score_ops.score_all(z, a)[1],
+                               bilinear_ops.bilinear(z, a[1]))
+    assert counts == [(m.launches, m.resident_launches, m.panel_launches)
+                      for m in (score_ops, bilinear_ops)]

@@ -1,6 +1,9 @@
-"""Time ``block_outer_sums`` and ``bilinear_batched`` on the card at the
-shapes of ``chip_smoke.py``'s paths, beside their one-call PyTorch
-yardsticks.
+"""Time ``block_outer_sums``, ``bilinear_batched``, ``gathered_block_grams``,
+``score_all`` and ``bilinear`` on the card at the shapes of
+``chip_smoke.py``'s paths, beside their one-call PyTorch yardsticks,
+``score_all_sharded`` at a mesh's M/S rows a shard and ``score_all`` on a
+few rows (host dispatch), and the MCMC path's greedy start, which calls
+``score_all`` eight times.
 
 It times the kernels of whichever ``repro_torch`` comes first on
 ``PYTHONPATH``, so two trees are compared in one call by running it in
@@ -17,8 +20,8 @@ as ``nvidia-smi`` gives them, and per kernel the mean CUDA-event time of
 warm calls through the wrapper (``ms``: host dispatch included, where it
 is longer than the kernel), the kernel's own mean device time from
 ``torch.profiler`` (``device_ms``) and the yardstick's event time in the
-same process.  Data are normal draws from ``--seed``; neither kernel's
-time depends on them.  Needs a CUDA device; imports no JAX.
+same process.  Data are normal draws from ``--seed``; no kernel's time
+depends on them.  Needs a CUDA device; imports no JAX.
 """
 from __future__ import annotations
 
@@ -45,8 +48,9 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
 
 
 def device_ms(fn, name: str, reps: int = 50) -> float:
-    """Mean device time of the kernels whose name holds ``name`` over
-    ``reps`` calls of ``fn``, from a profiler trace (0 if none showed)."""
+    """Mean device time of the kernels whose name holds ``name`` (or one of
+    its ``|``-separated parts) over ``reps`` calls of ``fn``, from a
+    profiler trace (0 if none showed)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -58,10 +62,35 @@ def device_ms(fn, name: str, reps: int = 50) -> float:
         torch.cuda.synchronize()
     total = 0.0
     for evt in prof.key_averages():
-        if name in evt.key:
+        if any(part in evt.key for part in name.split("|")):
             total += float(getattr(evt, "self_device_time_total",
                                    getattr(evt, "self_cuda_time_total", 0.0)))
     return total / reps / 1e3
+
+
+def greedy_start_ms(m: int, k: int, seed: int, dev, starts: int = 5) -> dict:
+    """Host ms of the MCMC path's greedy start (``core/mcmc.py::
+    init_greedy``: one chain of size 8, i.e. 8 ``score_all`` calls at
+    C = 1 over all m rows and each round's draw), on the spectral state of
+    the paper's synthetic features at m items and rank k (R = 2k); one
+    warm start, then ``starts`` timed ones, each synchronised."""
+    import time
+
+    import torch
+    from repro_torch import random as trandom
+    from repro_torch.core import mcmc as mcmc_core
+    from repro_torch.core.youla import spectral_from_params
+    from repro_torch.data.baskets import synthetic_features
+
+    sp = spectral_from_params(*synthetic_features(m, k, seed=seed), device=dev)
+    times = []
+    for i in range(starts + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mcmc_core.init_greedy(sp, trandom.PRNGKey(seed + i, dev), 1, 8)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"M": m, "R": 2 * k, "k": 8, "ms": times[1:]}
 
 
 def main() -> int:
@@ -76,6 +105,7 @@ def main() -> int:
         return 1
     import repro_torch  # noqa: F401  (sets the float32 matmul policy)
     from repro_torch.kernels.bilinear import ops as bilinear_ops
+    from repro_torch.kernels.mcmc_score import ops as score_ops
     from repro_torch.kernels.tree_sum import ops as tree_sum_ops
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -116,6 +146,71 @@ def main() -> int:
         "ms": cuda_ms(batched, 200),
         "device_ms": device_ms(batched, "bilinear_batched_kernel"),
         "library_ms": cuda_ms(lambda: (torch.bmm(z, q) * z).sum(-1), 200)}
+    del z, q
+
+    # gathered_block_grams: the catalog's update batch (1,024 distinct
+    # blocks of 64 rows out of 16,384, R = 200); its kernel is
+    # block_outer_sums_kernel, or gathered_block_grams_kernel in trees
+    # that kept the first port's design
+    n, nb = 1 << 14, 1024
+    w = torch.randn((n * block, r), generator=g, device=dev)
+    blks = torch.randperm(n, generator=g, device=dev)[:nb]
+    rows = (blks[:, None] * block + torch.arange(block, device=dev)).reshape(-1)
+
+    def gathered_library():
+        wb = w.index_select(0, rows).view(nb, block, r)
+        return torch.bmm(wb.transpose(1, 2), wb)
+
+    gathered = lambda: tree_sum_ops.gathered_block_grams(w, blks, block)  # noqa: E731
+    out["gathered_block_grams"] = {
+        "shape": [nb, block, r], "ms": cuda_ms(gathered, 50),
+        "device_ms": device_ms(gathered, "block_outer_sums_kernel|"
+                                         "gathered_block_grams_kernel", 20),
+        "library_ms": cuda_ms(gathered_library, 50)}
+    del w
+
+    # score_all and bilinear: the greedy start's all-catalog scores (M =
+    # 2^20, R = 200) at C = 1 and chip_smoke.py's C = 8, and bilinear in
+    # float32 and bfloat16; the kernels' names start with quad_ in this
+    # tree (quad_resident_kernel) and in the first port's (quad_form_kernel)
+    m = 1 << 20
+    zm = torch.randn((m, r), generator=g, device=dev)
+    for c in (1, 8):
+        a = torch.randn((c, r, r), generator=g, device=dev)
+        fn = lambda: score_ops.score_all(zm, a)  # noqa: E731
+        out[f"score_all_C{c}"] = {
+            "shape": [c, m, r], "ms": cuda_ms(fn, 10 if c == 1 else 3),
+            "device_ms": device_ms(fn, "quad_", 10 if c == 1 else 3),
+            "library_ms": cuda_ms(lambda: ((zm @ a) * zm).sum(-1),
+                                  10 if c == 1 else 3)}
+    # the sharded MCMC path's greedy-start scores: score_all_sharded at
+    # C = 1 over meshes of S = 1 and 2 on the one card (one launch of M/S
+    # rows a shard), and one launch of 4,096 rows, where the wrapper's host
+    # dispatch and each CTA's staging of A show
+    from repro_torch.launch.mesh import make_sampler_mesh
+
+    a1 = torch.randn((1, r, r), generator=g, device=dev)
+    for s in (1, 2):
+        mesh = make_sampler_mesh(devices=[zm.device] * s)
+        fn = lambda: score_ops.score_all_sharded(zm, a1, mesh)  # noqa: E731
+        out[f"score_all_sharded_S{s}"] = {
+            "shape": [1, m, r], "shards": s, "ms": cuda_ms(fn, 10),
+            "device_ms": device_ms(fn, "quad_", 10)}
+    z4k = zm[:4096]
+    fn = lambda: score_ops.score_all(z4k, a1)  # noqa: E731
+    out["score_all_M4096"] = {"shape": [1, 4096, r], "ms": cuda_ms(fn, 200),
+                              "device_ms": device_ms(fn, "quad_", 50)}
+    wq = torch.randn((r, r), generator=g, device=dev)
+    for name, zz, ww in (("bilinear", zm, wq),
+                         ("bilinear_bf16", zm.bfloat16(), wq.bfloat16())):
+        fn = lambda: bilinear_ops.bilinear(zz, ww)  # noqa: E731
+        out[name] = {
+            "shape": [m, r], "ms": cuda_ms(fn, 10),
+            "device_ms": device_ms(fn, "quad_", 10),
+            "library_ms": cuda_ms(lambda: ((zz @ ww) * zz).sum(-1), 10)}
+    del zm, zz, wq
+    torch.cuda.empty_cache()
+    out["greedy_start"] = greedy_start_ms(m, r // 2, args.seed, dev)
     print(json.dumps(out), flush=True)
     return 0
 
