@@ -65,7 +65,8 @@ kernel against its plain PyTorch version on the card:
    vocab 50,280, bfloat16, 1.44 B parameters) through the same steps at
    the same 2 x 4,096: every loss finite, the first within 1.5 of ln(V),
    the SSD kernel launched 2 x 48 times a step forward (remat) and 48
-   times backward -> one ``{"train_ssm": ...}`` line (the same readings;
+   times backward, every backward on the tensor-core ("wgmma") route ->
+   one ``{"train_ssm": ...}`` line (the same readings;
    MFU counts 6 N T + 3 x the SSD forward's own FLOP) with a plain witness
    that runs ``ssd_chunked_ref`` under autograd in place of the kernels,
    both paths in float32 (bf16 rounding alone moves mamba2's step-0
@@ -85,7 +86,13 @@ kernel against its plain PyTorch version on the card:
    (``csrc/flash_attn.cu``) at batch 1, 1,024 positions, within 2e-5.
    The ``score_all`` and ``bilinear`` entries name the quadratic form's
    route (chosen by R in ``quad_form.cuh``: "resident" at R = 200) and must
-   have taken it, with the paths' launches by route beside the totals;
+   have taken it, with the paths' launches by route beside the totals.
+   The ``ssd_bwd`` entry runs the backward's tensor-core route at the
+   train shape (``csrc/ssd.cu``'s three CUDA kernels, each counted once
+   in a profiler trace of one call at that shape, taken right after the
+   build, HGMMA in its SASS, every float32 operand a bf16 pair hi + lo)
+   with the float32 SIMT kernel, the other route, timed beside it on the
+   same inputs;
 9. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero (an exception's traceback, or a FAIL line)
@@ -100,6 +107,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -295,11 +303,13 @@ def _count_owners():
 def _route_owners():
     """(kernel name, module, {route: attribute}) of every kernel whose
     launches are also counted by route: flash's (``attention/ops.py::
-    _route``) and the quadratic form's (chosen by R in ``quad_form.cuh``).
-    Each launch adds one to its route's count and to the kernel's total."""
+    _route``), the quadratic form's (chosen by R in ``quad_form.cuh``) and
+    the SSD backward's (``ssd/ops.py::_bwd_route``).  Each launch adds one
+    to its route's count and to the kernel's total."""
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.bilinear import ops as bilinear_ops
     from repro_torch.kernels.mcmc_score import ops as mcmc_score_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
 
     quad = {"resident": "resident_launches", "panel": "panel_launches"}
     return (("flash_attention", attn_ops,
@@ -307,7 +317,9 @@ def _route_owners():
             ("flash_attention_bwd", attn_ops,
              {"wgmma": "wgmma_bwd_launches", "simt": "simt_bwd_launches"}),
             ("score_all", mcmc_score_ops, quad),
-            ("bilinear", bilinear_ops, quad))
+            ("bilinear", bilinear_ops, quad),
+            ("ssd_bwd", ssd_ops,
+             {"wgmma": "wgmma_bwd_launches", "simt": "simt_bwd_launches"}))
 
 
 def reset_counts() -> None:
@@ -1559,6 +1571,11 @@ def run_train_ssm():
                    f"2 x {cfg.n_layers} a step (remat) over {n_steps} steps")
     check_launches(run["launches"], "ssd_bwd", cfg.n_layers * n_steps,
                    f"{cfg.n_layers} a step over {n_steps} steps")
+    check_launches(run["launches"], "ssd_bwd.wgmma", cfg.n_layers * n_steps,
+                   f"{cfg.n_layers} a step over {n_steps} steps, all on "
+                   f"the wgmma route")
+    check_launches(run["launches"], "ssd_bwd.simt", 0, "none on the simt "
+                   "route")
 
     def plain_ssd(x, a, b, c, h0=None, *, chunk=128):
         return ssd_ref.ssd_chunked_ref(x, a, b, c, h0, chunk=chunk)
@@ -1590,6 +1607,7 @@ def run_train_ssm():
         "recompute not counted",
         d_inner=cfg.d_inner, n_mamba_heads=cfg.n_mamba_heads,
         head_dim=mc.head_dim, d_state=mc.d_state, chunk=mc.chunk,
+        ssd_bwd_routes=by_route(run["launches"], "ssd_bwd"),
         ssd_fwd_flop_per_layer=ssd_fwd_flop(
             TRAIN_BATCH, seq, cfg.n_mamba_heads, mc.head_dim, mc.d_state,
             mc.chunk))})
@@ -2052,6 +2070,44 @@ def _ssd_shape(x, b, chunk):
             "b_c_head_stride": b.stride(2)}
 
 
+def trace_ssd_bwd():
+    """One call of the SSD backward at the train_ssm path's shape (its
+    layer's x, B, C and dy in bf16, a in float32, B and C one row over the
+    heads) on seeded inputs, traced by ``torch.profiler``: the CUDA
+    kernels it launched, counted by name, and the shape.
+    ``main`` takes it right after the build: later in the run the
+    profiler drops the kernels of a short window (on the H100 one call's
+    three kernels were traced 3, 2, 1, then 0 times as the phases went by,
+    with or without idle time around the call)."""
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels.ssd import ops
+
+    cfg = get_config(TRAIN_SSM_ARCH)
+    bsz, s = TRAIN_BATCH, SHAPES[TRAIN_SHAPE].seq_len
+    h, p, n = cfg.n_mamba_heads, cfg.mamba.head_dim, cfg.mamba.d_state
+    chunk = min(cfg.mamba.chunk, s)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE)
+
+    x, dy = rand(bsz, s, h, p).bfloat16(), rand(bsz, s, h, p).bfloat16()
+    a = torch.sigmoid(rand(bsz, s, h))
+    b = rand(bsz, s, 1, n).bfloat16().expand(bsz, s, h, n)
+    c = rand(bsz, s, 1, n).bfloat16().expand(bsz, s, h, n)
+    states = ops.ssd_forward(x, a, b, c, chunk, keep_states=True)[2]
+    call = lambda: ops.ssd_backward(x, a, b, c, states, dy, None, chunk)
+    call()
+    counts = {}
+    for key, _, count in profile_window(call, "ssd_bwd")["tracked"][
+            "kernels_ms"]:
+        name = re.search(r"ssd_bwd\w*", key).group(0)
+        counts[name] = counts.get(name, 0) + count
+    return {"kernels": counts, "shape": _ssd_shape(x, b, chunk)}
+
+
 def check_ssd(xabc, chunk, launches):
     """Kernel 8's forward on layer 0's x, a, B, C of a timed SSM train step
     (B and C read through a head stride of 0, as the path reads them)
@@ -2109,11 +2165,27 @@ def check_ssd(xabc, chunk, launches):
             "shape": _ssd_shape(x, b, chunk)}
 
 
-def check_ssd_bwd(xabc, chunk, launches):
+#: the wgmma route's float32 operands, each entering its product as a bf16
+#: pair hi + lo (``tools/ssd_rounding.py``: any one rounded once fails or
+#: nearly fails the tolerances below)
+SSD_BWD_SPLIT = ["C o e (U)", "G o L (dx)", "M (dc, db)", "H_prev (dc)",
+                 "dH (dx, db)"]
+#: the CUDA kernels a call of the wgmma route must launch, once each: U a
+#: chunk, the carry of dH across chunks, the outputs a chunk
+SSD_BWD_WGMMA_KERNELS = ("ssd_bwd_u_kernel", "ssd_bwd_carry_kernel",
+                         "ssd_bwd_chunk_kernel")
+
+
+def check_ssd_bwd(xabc, chunk, launches, traced):
     """Kernel 8b, the backward, on the same inputs and a dy drawn from a
     seed (h_last's gradient zero, as in training), against autograd of the
-    plain version in float32; db and dc a head at a time."""
+    plain version in float32; db and dc a head at a time.  The train shape
+    takes the wgmma route; the SIMT kernel (the simt route, which takes
+    float32 and the other shapes) runs beside it on the same inputs.
+    ``traced``: ``trace_ssd_bwd()``'s count of the route's CUDA kernels,
+    which must be each of its three once, at the same shape."""
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ssd import ops, ref
 
     x, a, b, c = xabc
@@ -2122,7 +2194,12 @@ def check_ssd_bwd(xabc, chunk, launches):
     gen.manual_seed(SEED)
     dy = torch.randn(x.shape, generator=gen, device=x.device).to(x.dtype)
     _, _, states = ops.ssd_forward(x, a, b, c, chunk, keep_states=True)
-    got = ops.ssd_backward(x, a, b, c, states, dy, None, chunk)
+    got, routes = route_delta("ssd_bwd", lambda: ops.ssd_backward(
+        x, a, b, c, states, dy, None, chunk))
+    again = ops.ssd_backward(x, a, b, c, states, dy, None, chunk)
+    deterministic = all(bool(torch.equal(u, v)) for u, v in zip(got, again))
+    del again
+    simt = ops._launch_backward("simt", x, a, b, c, states, dy, None, chunk)
     leaves = [t.float().contiguous().requires_grad_(True) for t in (x, a, b, c)]
     want = torch.autograd.grad(ref.ssd_chunked_ref(*leaves, chunk=chunk)[0],
                                leaves, dy.float())
@@ -2138,6 +2215,8 @@ def check_ssd_bwd(xabc, chunk, launches):
                 "dc": ref.row_excess(dc, want[3], 1, SSD_REL_BF16)}
 
     excess = excess_of(*got)
+    simt_excess = excess_of(*simt)
+    del simt
     err = max(float((g.float() - w).abs().max()) / float(w.abs().max())
               for g, w in zip(got, want))
     # planted faults the tolerance must reject
@@ -2156,9 +2235,17 @@ def check_ssd_bwd(xabc, chunk, launches):
                "dx, decays of head (h - 1) % H": ref.row_excess(
                    rolled, want[0], 1, SSD_REL_BF16)}
     del parts, rolled, st, want, got
-    ok = max(excess.values()) <= 1 and all(v > 1 for v in mutants.values())
+    hgmma = "HGMMA" in _build.sass("ssd")
+    cuda_kernels = traced["kernels"]
+    ok = (max(excess.values()) <= 1 and all(v > 1 for v in mutants.values())
+          and routes == {"wgmma": 1, "simt": 0} and hgmma and deterministic
+          and max(simt_excess.values()) <= 1
+          and cuda_kernels == dict.fromkeys(SSD_BWD_WGMMA_KERNELS, 1)
+          and traced["shape"] == _ssd_shape(x, b, chunk))
     ms = cuda_ms(lambda: ops.ssd_backward(x, a, b, c, states, dy, None,
                                           chunk), reps=5)
+    simt_ms = cuda_ms(lambda: ops._launch_backward(
+        "simt", x, a, b, c, states, dy, None, chunk), reps=3)
     leaves = [t.detach().requires_grad_(True) for t in (x, a, b, c)]
     out = ref.ssd_chunked_ref(*leaves, chunk=chunk)[0]
     plain_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, dy,
@@ -2169,6 +2256,14 @@ def check_ssd_bwd(xabc, chunk, launches):
     n_bytes = _ssd_bytes(x, a, b, c, backward=True)
     bms, by = bound(n_bytes, n_flop, BF16_FLOP_PER_S)
     return {"name": "ssd_bwd", "route": "cuda",
+            "ssd_route": "wgmma", "route_launches": routes,
+            "cuda_launches_per_call": sum(cuda_kernels.values()),
+            "cuda_kernels_per_call": cuda_kernels,
+            "cuda_kernels_traced": "one call on seeded inputs of this "
+                                   "shape, by torch.profiler, right after "
+                                   "the build",
+            "sass_has_hgmma": hgmma, "split": SSD_BWD_SPLIT,
+            "deterministic": deterministic,
             "source": "src/repro_torch/csrc/ssd.cu",
             "replaces": "src/repro/kernels/ssd/ssd.py:80 (the TPU kernel "
                         "has no backward; this is the port's own)",
@@ -2180,14 +2275,21 @@ def check_ssd_bwd(xabc, chunk, launches):
                          "head) of dx, db, dc, one chunk of one head of d "
                          "log a = da * a): rel = 2^-8 for dx, db, dc, 2^-12 "
                          "for d log a (excess <= 1); each planted fault "
-                         "rejected (excess > 1)",
+                         "rejected (excess > 1); the launch on the wgmma "
+                         "route, HGMMA in the SASS, two calls equal, one "
+                         "call's trace holding each of the route's three "
+                         "CUDA kernels once; the simt route within the "
+                         "same tolerances",
             "ok": ok, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by,
             "bound_ms_fp32_fma": max(n_bytes / HBM_BYTES_PER_S,
                                      n_flop / FP32_FLOP_PER_S) * 1e3,
             "flop": n_flop, "bytes": n_bytes, "library_ms": None,
             "library": "none (no single PyTorch call)",
-            "shape": _ssd_shape(x, b, chunk)}
+            "shape": _ssd_shape(x, b, chunk),
+            "simt": {"ms": simt_ms, "excess": simt_excess,
+                     "what": "the SIMT kernel (the simt route) on the same "
+                             "bf16 inputs, timed in this process"}}
 
 
 # --------------------------------------------------------------------- main
@@ -2228,6 +2330,9 @@ def main() -> int:
         for line in _build.build_log(kname).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {kname}: {line.strip()}", flush=True)
+    ssd_bwd_traced = trace_ssd_bwd()
+    gc.collect()
+    torch.cuda.empty_cache()
 
     by_path = {}
     sampler, captured, by_path["main_path"], factors, main_out = \
@@ -2293,7 +2398,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     chunk = min(get_config(TRAIN_SSM_ARCH).mamba.chunk, xabc[0].shape[1])
     entries.append(check_ssd(xabc, chunk, None))
-    entries.append(check_ssd_bwd(xabc, chunk, None))
+    entries.append(check_ssd_bwd(xabc, chunk, None, ssd_bwd_traced))
     del xabc
     # the float32 yardsticks run in full float32 only while this is False
     tf32 = bool(torch.backends.cuda.matmul.allow_tf32)

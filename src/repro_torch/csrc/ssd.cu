@@ -15,9 +15,9 @@
 // The backward is the port's own (the JAX package differentiates the plain
 // chunked path, repro/kernels/ssd/ops.py::ssd_chunked_ref): from dy and the
 // gradient of the last state it gives dx, da, db and dc as JAX's autodiff
-// of ssd_chunked_ref would.  Per (batch, head) it walks the chunks in
-// reverse carrying dH (N x P, float32), the gradient of the chunk's end
-// state.  With G = C B^T, dS = dY X^T masked to i >= j, M = dS o L,
+// of ssd_chunked_ref would.  dH (N x P, float32), the gradient of a
+// chunk's end state, is carried across the chunks in reverse; within a
+// chunk, with G = C B^T, dS = dY X^T masked to i >= j, M = dS o L,
 // T = M o G, w = exp(total - cum), e = exp(cum), D = dY H_prev^T:
 //   dx = (G o L)^T dY + (B o w) dH,
 //   dc = M B + e o D,
@@ -37,23 +37,60 @@
 // 4QNP FLOP a (batch, head, chunk), C B^T and its product with X over the
 // causally live pairs only, 30.2 GFLOP in all (0.031 ms at 989 TFLOP/s,
 // 0.45 ms at the 67 TFLOP/s of float32 FMA), against ~145 MB moved
-// (0.043 ms at 3.35 TB/s): bytes bound it.
+// (0.043 ms at 3.35 TB/s): bytes bound it.  The backward's products, each
+// once over the live pairs, are 69 GFLOP (0.070 ms at 989 TFLOP/s, 1.03
+// at float32 FMA) against ~0.21 GB moved: operations bound it.
 //
-// Design: a first, simple kernel.  One CTA of 256 threads (a 16 x 16 grid)
-// per (batch, head) walks its chunks (128 CTAs at the train shape, one
-// wave on 132 SMs); inputs are widened to float32 in shared-memory tiles
-// and every product is a float32 FMA outside the tensor cores (no wgmma,
-// no TMA yet), each thread holding a register block of its output.  Shared
-// memory: B and X of the whole chunk, the state, and C and the masked
-// C B^T in row tiles (RF rows forward, RB backward), about 200 KB; rows of
-// an odd stride (N + 1, P + 1) keep the 16 threads of a row group on 16
-// distinct banks.  Only the causally live tiles of C B^T are computed.
-// The chunk-parallel form (chunk states, a pass across chunks, then the
-// outputs) that would fill the card at small B H is later work.
+// The forward, and the backward's "simt" route (float32, and every shape
+// the wgmma route does not take): the first, simple kernels.  One CTA
+// of 256 threads (a 16 x 16 grid) per (batch, head) walks its chunks (128
+// CTAs at the train shape, one wave on 132 SMs), the backward in reverse
+// carrying dH; inputs are widened to float32 in shared-memory tiles and
+// every product is a float32 FMA outside the tensor cores, each thread
+// holding a register block of its output.  Shared memory: B and X of the
+// whole chunk, the state, and C and the masked C B^T in row tiles (RF rows
+// forward, RB backward), about 200 KB; rows of an odd stride (N + 1,
+// P + 1) keep the 16 threads of a row group on 16 distinct banks.  Only
+// the causally live tiles of C B^T are computed.
+//
+// The backward's "wgmma" route (bf16, Q of 64 or 128, N and P multiples of
+// 16; ops.py::_bwd_route): the same algebra, chunk-parallel on the tensor
+// cores.  Its only sequential part is dH, carried across chunks as
+//   dH_end(q - 1) = exp(total_q) dH_end(q) + U_q,  U_q = (C_q o e_q)^T dY_q,
+// so it runs as three launches, each output element written by one CTA
+// (deterministic, no atomics), with one float32 scratch, dH_end
+// (B, H, S/Q, N, P):
+//   A. U_q for every chunk q >= 1, one CTA of two warpgroups per (batch,
+//      head, chunk), into dH_end[q];
+//   B. the carry, in place over dH_end, elementwise over N x P;
+//   C. the outputs, one CTA of Q/64 warpgroups per (batch, head, chunk):
+//      warpgroup w takes rows 64w.. as i (dc, sum_j T_ij, c_i . D_i) and
+//      then as j (dx, db, sum_i T_ij, dw_j), G and dS computed in both
+//      orientations (G = C B^T and G^T = B C^T, 64 x 64 tiles, the tiles
+//      past the diagonal skipped), then the d log a scan.
+// X, dY, B and C are staged with cp.async in 128-byte-swizzled boxes that
+// the wgmma descriptors read (a fence makes the stores visible to the
+// async proxy); a float32 operand enters its product as a bf16 pair
+// hi + lo, two wgmmas: C o e (built in registers), M and G o L (from the
+// accumulators, ``to_a_split``), H_prev and dH (staged as pairs).  Scales
+// by row stay outside the products ((B o w) dH = diag(w) (B dH)); L is
+// masked before its exp.  tools/ssd_rounding.py's CPU emulation of this
+// order reads dx, db, dc 0.48-0.49 of the 2^-8 tolerance and d log a
+// 0.003-0.008 of 2^-12; any one of the five operands rounded once reads
+// 0.82-6.9.  The lines "// PART p1", "// PART p2", "// PART scan" and
+// "// PART end" in ssd_bwd_chunk_kernel mark its phase 1, phase 2 and
+// d log a scan, each running to the next mark: tools/ssd_bwd_parts.py
+// builds copies with parts between them compiled out, to time each.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "cp_async.cuh"
+#include "wgmma.cuh"
 
 namespace {
+
+using namespace repro_torch;
 
 constexpr int kThreads = 256;  // a 16 x 16 grid of threads
 constexpr int QM = 128;        // the largest chunk
@@ -767,6 +804,656 @@ int bwd(const void* x, const float* a, const void* b, const void* c,
   return (int)cudaGetLastError();
 }
 
+
+// ------------------------------------------------ backward, the wgmma route
+constexpr int kWG = 128;     // threads of a warpgroup
+constexpr int kRow = 128;    // bytes of a swizzled row: 64 bf16 columns
+constexpr int kStateBox = NM * kRow;  // an N x P state as one bf16 box
+
+// Byte offset of element (r, c), c < 64, in a box of 128-byte rows under
+// the 128-byte swizzle that the wgmma descriptors read (the 16-byte chunk
+// c / 8 of row r is stored at chunk (c / 8) ^ (r % 8)).
+__device__ __forceinline__ int sw(int r, int c) {
+  return r * kRow + ((((c >> 3) ^ r) & 7) << 4) + ((c & 7) << 1);
+}
+
+__device__ __forceinline__ float sm_bf(const uint8_t* box, int r, int c) {
+  return __bfloat162float(
+      *reinterpret_cast<const __nv_bfloat16*>(box + sw(r, c)));
+}
+
+// Elements (r, c) and (r, c + 1), c even.
+__device__ __forceinline__ float2 sm_bf2(const uint8_t* box, int r, int c) {
+  return __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(box + sw(r, c)));
+}
+
+// Four float32 values as bf16 pairs: hi (each rounded) at `hi`, lo (what
+// that lost, rounded again) at `lo`, 8 bytes each.
+__device__ __forceinline__ void store_pair(uint8_t* hi, uint8_t* lo,
+                                           float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  const float2 af = __bfloat1622float2(a), bf = __bfloat1622float2(b);
+  *reinterpret_cast<uint2*>(hi) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                 *reinterpret_cast<const uint32_t*>(&b));
+  *reinterpret_cast<uint2*>(lo) =
+      make_uint2(bf16x2(v.x - af.x, v.y - af.y), bf16x2(v.z - bf.x, v.w - bf.y));
+}
+
+// Rows [0, R) and columns [0, 64 NB) of a bf16 matrix whose row r starts at
+// g + r * rs (unit column stride, K valid columns, K a multiple of 8) into
+// NB swizzled boxes of R rows (box k at s + k R 128 bytes); columns >= K
+// are zero.  kVec: g and rs allow 16-byte copies (cp.async), else the
+// chunk is read an element at a time.
+template <bool kVec>
+__device__ __forceinline__ void stage(uint8_t* s, const __nv_bfloat16* g,
+                                      long long rs, int R, int NB, int K) {
+  for (int i = threadIdx.x; i < R * NB * 8; i += blockDim.x) {
+    const int r = i / (NB * 8), c8 = i % (NB * 8);
+    uint8_t* dst = s + (c8 >> 3) * R * kRow + sw(r, (c8 & 7) * 8);
+    const __nv_bfloat16* src = g + r * rs + c8 * 8;
+    if (c8 * 8 >= K) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    } else if constexpr (kVec) {
+      cp_async16(dst, src);
+    } else {
+      const unsigned short* e = reinterpret_cast<const unsigned short*>(src);
+      uint32_t v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        v[k] = (uint32_t)e[2 * k] | ((uint32_t)e[2 * k + 1] << 16);
+      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// Wait for this thread's copies, make every staged tile visible to wgmma
+// (the async proxy), then to the CTA.
+__device__ __forceinline__ void staged() {
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_async_smem();
+  __syncthreads();
+}
+
+// Pass A: U_q = (C o e)^T dY of chunk q >= 1 of one (batch, head), N x P
+// float32 into dH_end[q] (pass B turns it into dH_end(q) in place).  Two
+// warpgroups, 64 rows n each; A = (C o e)^T is built in registers as a
+// bf16 pair hi + lo from the staged C, B = dY MN-major.  Four CTAs an SM
+// (64 registers): ptxas spills ~100 bytes of the fragments, which costs
+// less than the latency two CTAs an SM leave exposed.
+template <int QT, bool kVec>
+__global__ void __launch_bounds__(2 * kWG, 4)
+ssd_bwd_u_kernel(const __nv_bfloat16* __restrict__ Cm,
+                 const float* __restrict__ A,
+                 const __nv_bfloat16* __restrict__ DY,
+                 float* __restrict__ Dend, int S, int H, int P, int N,
+                 long long cb, long long cs, long long ch, long long yb,
+                 long long ys, long long yh) {
+  constexpr int Q = 64 * QT;
+  uint8_t* sm = smem_base();
+  uint8_t* sC = sm;                 // 2 boxes of Q rows
+  uint8_t* sDY = sm + 2 * Q * kRow;  // 1 box of Q rows
+  float* sCum = reinterpret_cast<float*>(sm + 3 * Q * kRow);  // QM
+  float* sE = sCum + QM;                                       // QM
+
+  const int nq = S / Q;
+  const int h = blockIdx.x % H, t = blockIdx.x / H;
+  const int q = 1 + t % (nq - 1), bi = t / (nq - 1), s0 = q * Q;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid & 127) >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  stage<kVec>(sC, Cm + bi * cb + h * ch + s0 * cs, cs, Q, 2, N);
+  stage<kVec>(sDY, DY + bi * yb + h * yh + s0 * ys, ys, Q, 1, P);
+  if (tid < 32) chunk_cumsum(A + ((long long)bi * S + s0) * H + h, H, Q, sCum);
+  __syncthreads();
+  for (int i = tid; i < Q; i += blockDim.x) sE[i] = expf(sCum[i]);
+  staged();
+
+  // A fragments: register j holds rows n and n + 8 (j odd), columns
+  // 16c + 8 (j / 2) + 2 tq and the next
+  const int n = 64 * wg + 16 * warp + g;
+  uint32_t ah[4 * QT][4], al[4 * QT][4];
+#pragma unroll
+  for (int c = 0; c < 4 * QT; ++c)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = n + 8 * (j & 1), i = 16 * c + 8 * (j >> 1) + 2 * tq;
+      const uint8_t* box = sC + (r >> 6) * Q * kRow;
+      const float x = sm_bf(box, i, r & 63) * sE[i];
+      const float y = sm_bf(box, i + 1, r & 63) * sE[i + 1];
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
+      const float2 f = __bfloat1622float2(hi);
+      ah[c][j] = *reinterpret_cast<const uint32_t*>(&hi);
+      al[c][j] = bf16x2(x - f.x, y - f.y);
+    }
+  float u[32];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) u[k] = 0.f;
+  hold(u);
+  hold(ah);
+  hold(al);
+  wg_fence();
+#pragma unroll
+  for (int c = 0; c < 4 * QT; ++c) {
+    const uint64_t bd = sw128_desc(sDY + 16 * c * kRow, Q * kRow, 1024);
+    wgmma_rs_n64(u, ah[c], bd, 1);
+    wgmma_rs_n64(u, al[c], bd, 1);
+  }
+  wg_commit();
+  wg_wait_all();
+  hold(u);
+  hold(ah);
+  hold(al);
+  float* out = Dend + (((long long)bi * H + h) * nq + q) * N * P;
+#pragma unroll
+  for (int k = 0; k < 32; k += 2) {
+    const int r = 64 * wg + 16 * warp + g + 8 * ((k >> 1) & 1);
+    const int p = 8 * (k >> 2) + 2 * tq;
+    if (r < N && p < P)
+      *reinterpret_cast<float2*>(out + r * P + p) = make_float2(u[k], u[k + 1]);
+  }
+}
+
+// Pass B: dH_end(q) across the chunks of one (batch, head), in reverse and
+// in place over pass A's U: dH_end(last) = dh_last (or 0), dH_end(q - 1) =
+// exp(total_q) dH_end(q) + U_q.  The warps first take every chunk's
+// exp(total_q) from its cumulative sum, as pass C does, into shared memory
+// (S / Q floats, dynamic); then each thread carries 4 floats of N x P,
+// with the next kCarryDepth chunks' U in flight while it stores the
+// current ones' dH_end (the first batch's loads start before the totals).
+constexpr int kCarryDepth = 4;
+
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_carry_kernel(float* __restrict__ Dend, const float* __restrict__ A,
+                     const float* __restrict__ DHlast, int S, int H, int NP,
+                     int Q) {
+  extern __shared__ float sDecay[];  // exp(total_q)
+  __shared__ float sCum[kThreads / 32][QM];
+  const int nq = S / Q, bh = blockIdx.x, bi = bh / H, h = bh % H;
+  const int warp = threadIdx.x >> 5;
+  const int e4 = blockIdx.y * kThreads + threadIdx.x;
+  const bool live = 4 * e4 < NP;
+  float4* col = reinterpret_cast<float4*>(Dend + (long long)bh * nq * NP) + e4;
+  const long long qs = NP / 4;  // float4s from one chunk's dH to the next
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 u[kCarryDepth];  // the U of chunks q0, q0 - 1, ...
+#pragma unroll
+  for (int k = 0; k < kCarryDepth; ++k)
+    u[k] = live && nq - 1 - k >= 1 ? col[(nq - 1 - k) * qs] : zero;
+  const float* ag = A + (long long)bi * S * H + h;
+  for (int q = 1 + warp; q < nq; q += kThreads / 32) {
+    chunk_cumsum(ag + (long long)q * Q * H, H, Q, sCum[warp]);
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) sDecay[q] = expf(sCum[warp][Q - 1]);
+    __syncwarp();
+  }
+  __syncthreads();
+  if (!live) return;
+  float4 run = DHlast != nullptr
+                   ? reinterpret_cast<const float4*>(DHlast + (long long)bh * NP)[e4]
+                   : zero;
+  for (int q0 = nq - 1; q0 >= 0; q0 -= kCarryDepth) {
+    float4 un[kCarryDepth];  // the next batch, in flight during this one
+#pragma unroll
+    for (int k = 0; k < kCarryDepth; ++k) {
+      const int q = q0 - kCarryDepth - k;
+      un[k] = q >= 1 ? col[q * qs] : zero;
+    }
+#pragma unroll
+    for (int k = 0; k < kCarryDepth; ++k) {
+      const int q = q0 - k;
+      if (q < 0) break;
+      col[q * qs] = run;
+      if (q >= 1) {
+        const float et = sDecay[q];
+        run = make_float4(fmaf(et, run.x, u[k].x), fmaf(et, run.y, u[k].y),
+                          fmaf(et, run.z, u[k].z), fmaf(et, run.w, u[k].w));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kCarryDepth; ++k) u[k] = un[k];
+  }
+}
+
+template <int QT>
+struct BwdTiles {
+  static constexpr int Q = 64 * QT;
+  static constexpr int X = 0;                  // X: 1 box of Q rows
+  static constexpr int DY = Q * kRow;          // dY: 1 box
+  static constexpr int B = 2 * Q * kRow;       // B: 2 boxes
+  static constexpr int C = 4 * Q * kRow;       // C: 2 boxes
+  static constexpr int DHH = 6 * Q * kRow;     // dH hi, N x P
+  static constexpr int DHL = DHH + kStateBox;  // dH lo
+  static constexpr int HPH = DHL + kStateBox;  // H_prev hi
+  static constexpr int HPL = HPH + kStateBox;  // H_prev lo
+  static constexpr int F = HPL + kStateBox;    // float arrays below
+  static constexpr int SMEM = F + (8 * QM + 8) * 4 + 1024;
+};
+
+// Pass C: the outputs of chunk q of one (batch, head) from H_prev (the
+// forward's states) and dH = dH_end(q).  QT warpgroups; warpgroup w owns
+// rows 64w .. 64w + 63 of the chunk, as i (the rows of dc, phase 1) and
+// then as j (the rows of dx and db, phase 2).  Float32 operands enter the
+// products as bf16 pairs hi + lo, scales by row stay outside them.
+template <int QT, bool kVec>
+__global__ void __launch_bounds__(QT * kWG, 1)
+ssd_bwd_chunk_kernel(const __nv_bfloat16* __restrict__ X,
+                     const float* __restrict__ A,
+                     const __nv_bfloat16* __restrict__ Bm,
+                     const __nv_bfloat16* __restrict__ Cm,
+                     const float* __restrict__ States,
+                     const __nv_bfloat16* __restrict__ DY,
+                     const float* __restrict__ Dend,
+                     __nv_bfloat16* __restrict__ DX, float* __restrict__ DA,
+                     __nv_bfloat16* __restrict__ DB,
+                     __nv_bfloat16* __restrict__ DC, int S, int H, int P,
+                     int N, long long xb, long long xs, long long xh,
+                     long long bb, long long bs, long long bh, long long cb,
+                     long long cs, long long ch, long long yb, long long ys,
+                     long long yh) {
+  using T = BwdTiles<QT>;
+  constexpr int Q = T::Q;
+  uint8_t* sm = smem_base();
+  float* sCum = reinterpret_cast<float*>(sm + T::F);  // QM each
+  float* sE = sCum + QM;     // exp(cum)
+  float* sW = sE + QM;       // exp(total - cum)
+  float* sRowT = sW + QM;    // sum_j T_ij
+  float* sColT = sRowT + QM;  // sum_i T_ij
+  float* sDec = sColT + QM;  // e_i (c_i . D_i)
+  float* sDw = sDec + QM;    // w_j dw_j
+  float* sA = sDw + QM;      // the chunk's a
+  float* sRed = sA + QM;     // <H_prev, dH> by warp
+
+  const int nq = S / Q;
+  const int h = blockIdx.x % H, t = blockIdx.x / H;
+  const int q = t % nq, bi = t / nq, s0 = q * Q;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid & 127) >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int rl = 16 * warp + g;  // the thread's rows rl and rl + 8 of a tile
+
+  stage<kVec>(sm + T::X, X + bi * xb + h * xh + s0 * xs, xs, Q, 1, P);
+  stage<kVec>(sm + T::DY, DY + bi * yb + h * yh + s0 * ys, ys, Q, 1, P);
+  stage<kVec>(sm + T::B, Bm + bi * bb + h * bh + s0 * bs, bs, Q, 2, N);
+  stage<kVec>(sm + T::C, Cm + bi * cb + h * ch + s0 * cs, cs, Q, 2, N);
+  const float* ag = A + ((long long)bi * S + s0) * H + h;
+  if (tid < 32) chunk_cumsum(ag, H, Q, sCum);
+  else if (tid < 64)  // the chunk's a, for da at the end
+    for (int i = tid - 32; i < Q; i += 32) sA[i] = ag[(long long)i * H];
+  {  // dH and H_prev as bf16 pairs, N x P padded to NM x PM; <H_prev, dH>
+    const long long off = (((long long)bi * H + h) * nq + q) * N * P;
+    constexpr int kF = NM * PM / 4 / (QT * kWG);  // float4s a thread
+    constexpr int kBatch = kF < 8 ? kF : 8;       // loads in flight
+    float part = 0.f;
+#pragma unroll
+    for (int f0 = 0; f0 < kF; f0 += kBatch) {
+      float4 dd[kBatch], ss[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int f = tid + (f0 + k) * QT * kWG;
+        const int r = f / (PM / 4), p = 4 * (f % (PM / 4));
+        dd[k] = ss[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r < N && p < P) {
+          dd[k] = *reinterpret_cast<const float4*>(Dend + off + r * P + p);
+          ss[k] = *reinterpret_cast<const float4*>(States + off + r * P + p);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int f = tid + (f0 + k) * QT * kWG;
+        const int o = sw(f / (PM / 4), 4 * (f % (PM / 4)));
+        const float4 d = dd[k], hp = ss[k];
+        part += d.x * hp.x + d.y * hp.y + d.z * hp.z + d.w * hp.w;
+        store_pair(sm + T::DHH + o, sm + T::DHL + o, d);
+        store_pair(sm + T::HPH + o, sm + T::HPL + o, hp);
+      }
+    }
+    part = warp_sum(part);
+    if (lane == 0) sRed[tid >> 5] = part;
+  }
+  __syncthreads();
+  const float total = sCum[Q - 1];
+  for (int i = tid; i < Q; i += blockDim.x) {
+    sE[i] = expf(sCum[i]);
+    sW[i] = expf(total - sCum[i]);
+  }
+  staged();
+
+  // PART p1
+  // ---- phase 1, rows i of tile wg: dc = e o (dY H_prev^T) + M B; the
+  // first column tile's G and dS share a wait with D = dY H_prev^T
+  {
+    const int i0 = 64 * wg;
+    float dc[64], dec[2] = {0.f, 0.f}, rowt[2] = {0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < 64; ++k) dc[k] = 0.f;
+    for (int jt = 0; jt <= wg; ++jt) {
+      float gm[32], ms[32];
+#pragma unroll
+      for (int k = 0; k < 32; ++k) gm[k] = ms[k] = 0.f;
+      hold(dc);
+      hold(gm);
+      hold(ms);
+      wg_fence();
+      if (jt == 0) {
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_ss_n128(
+              dc, sw128_desc(sm + T::DY + i0 * kRow + 32 * (kk & 3), 16, 1024),
+              sw128_desc(sm + (kk < 4 ? T::HPH : T::HPL) + 32 * (kk & 3), 16,
+                         1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int box = (kk >> 2) * Q * kRow, col = 32 * (kk & 3);
+        wgmma_ss_n64(gm, sw128_desc(sm + T::C + box + i0 * kRow + col, 16, 1024),
+                     sw128_desc(sm + T::B + box + 64 * jt * kRow + col, 16,
+                                1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n64(ms, sw128_desc(sm + T::DY + i0 * kRow + 32 * kk, 16, 1024),
+                     sw128_desc(sm + T::X + 64 * jt * kRow + 32 * kk, 16, 1024),
+                     kk > 0);
+      wg_commit();
+      wg_wait_all();
+      hold(dc);
+      hold(gm);
+      hold(ms);
+      if (jt == 0) {  // c_i . D_i, then D scaled by e_i
+#pragma unroll
+        for (int k = 0; k < 64; k += 2) {
+          const int r = (k >> 1) & 1, i = i0 + rl + 8 * r;
+          const int nn = 8 * (k >> 2) + 2 * tq;
+          const float2 cv = sm_bf2(sm + T::C + (nn >> 6) * Q * kRow, i, nn & 63);
+          dec[r] = fmaf(cv.x, dc[k], fmaf(cv.y, dc[k + 1], dec[r]));
+          dc[k] *= sE[i];
+          dc[k + 1] *= sE[i];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {  // M = dS o L, T = M o G
+        const int r = (k >> 1) & 1, i = i0 + rl + 8 * r;
+        const int j = 64 * jt + 8 * (k >> 2) + 2 * tq + (k & 1);
+        const float l = i >= j ? expf(sCum[i] - sCum[j]) : 0.f;
+        ms[k] *= l;
+        rowt[r] = fmaf(ms[k], gm[k], rowt[r]);
+      }
+      uint32_t mh[4][4], ml[4][4];
+      to_a_split<4>(ms, mh, ml);
+      hold(dc);
+      hold(mh);
+      hold(ml);
+      wg_fence();
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const uint64_t bd = sw128_desc(sm + T::B + (64 * jt + 16 * c) * kRow,
+                                       Q * kRow, 1024);
+        wgmma_rs_n128(dc, mh[c], bd, 1);
+        wgmma_rs_n128(dc, ml[c], bd, 1);
+      }
+      wg_commit();
+      wg_wait_all();
+      hold(dc);
+      hold(mh);
+      hold(ml);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      dec[r] += __shfl_xor_sync(0xffffffffu, dec[r], 1);
+      dec[r] += __shfl_xor_sync(0xffffffffu, dec[r], 2);
+      rowt[r] += __shfl_xor_sync(0xffffffffu, rowt[r], 1);
+      rowt[r] += __shfl_xor_sync(0xffffffffu, rowt[r], 2);
+      const int i = i0 + rl + 8 * r;
+      if (tq == 0) {
+        sDec[i] = sE[i] * dec[r];
+        sRowT[i] = rowt[r];
+      }
+    }
+    __nv_bfloat16* dcg = DC + (long long)bi * S * H * N + (long long)h * N;
+#pragma unroll
+    for (int k = 0; k < 64; k += 2) {
+      const int i = i0 + rl + 8 * ((k >> 1) & 1);
+      const int nn = 8 * (k >> 2) + 2 * tq;
+      if (nn < N)
+        *reinterpret_cast<__nv_bfloat162*>(
+            dcg + (long long)(s0 + i) * H * N + nn) =
+            __floats2bfloat162_rn(dc[k], dc[k + 1]);
+    }
+  }
+
+  // PART p2
+  // ---- phase 2, rows j of tile wg: dx = w o (B dH) + (G o L)^T dY,
+  // db = w o (X dH^T) + M^T C; the first row tile's G^T and dS^T share a
+  // wait with X dH^T and B dH, and M^T C and (G o L)^T dY share one
+  {
+    const int j0 = 64 * wg;
+    float db[64], dx[32], dw[2] = {0.f, 0.f}, colt[2] = {0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < 64; ++k) db[k] = 0.f;
+#pragma unroll
+    for (int k = 0; k < 32; ++k) dx[k] = 0.f;
+    for (int it = wg; it < QT; ++it) {
+      float gt[32], mt[32];
+#pragma unroll
+      for (int k = 0; k < 32; ++k) gt[k] = mt[k] = 0.f;
+      hold(db);
+      hold(dx);
+      hold(gt);
+      hold(mt);
+      wg_fence();
+      if (it == wg) {
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_ss_n128(
+              db, sw128_desc(sm + T::X + j0 * kRow + 32 * (kk & 3), 16, 1024),
+              sw128_desc(sm + (kk < 4 ? T::DHH : T::DHL) + 32 * (kk & 3), 16,
+                         1024), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const uint64_t ad = sw128_desc(
+              sm + T::B + (kk >> 2) * Q * kRow + j0 * kRow + 32 * (kk & 3), 16,
+              1024);
+          wgmma_ss_n64_tb(dx, ad, sw128_desc(sm + T::DHH + 16 * kk * kRow,
+                                             kStateBox, 1024), kk > 0);
+          wgmma_ss_n64_tb(dx, ad, sw128_desc(sm + T::DHL + 16 * kk * kRow,
+                                             kStateBox, 1024), 1);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int box = (kk >> 2) * Q * kRow, col = 32 * (kk & 3);
+        wgmma_ss_n64(gt, sw128_desc(sm + T::B + box + j0 * kRow + col, 16, 1024),
+                     sw128_desc(sm + T::C + box + 64 * it * kRow + col, 16,
+                                1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n64(mt, sw128_desc(sm + T::X + j0 * kRow + 32 * kk, 16, 1024),
+                     sw128_desc(sm + T::DY + 64 * it * kRow + 32 * kk, 16,
+                                1024), kk > 0);
+      wg_commit();
+      wg_wait_all();
+      hold(db);
+      hold(dx);
+      hold(gt);
+      hold(mt);
+      if (it == wg) {  // b_j . (X dH^T)_j, then both scaled by w_j
+#pragma unroll
+        for (int k = 0; k < 64; k += 2) {
+          const int r = (k >> 1) & 1, j = j0 + rl + 8 * r;
+          const int nn = 8 * (k >> 2) + 2 * tq;
+          const float2 bv = sm_bf2(sm + T::B + (nn >> 6) * Q * kRow, j, nn & 63);
+          dw[r] = fmaf(bv.x, db[k], fmaf(bv.y, db[k + 1], dw[r]));
+          db[k] *= sW[j];
+          db[k + 1] *= sW[j];
+        }
+#pragma unroll
+        for (int k = 0; k < 32; ++k) dx[k] *= sW[j0 + rl + 8 * ((k >> 1) & 1)];
+      }
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {  // M^T, (G o L)^T, column sums of T
+        const int r = (k >> 1) & 1, j = j0 + rl + 8 * r;
+        const int i = 64 * it + 8 * (k >> 2) + 2 * tq + (k & 1);
+        const float l = i >= j ? expf(sCum[i] - sCum[j]) : 0.f;
+        mt[k] *= l;
+        colt[r] = fmaf(mt[k], gt[k], colt[r]);
+        gt[k] *= l;
+      }
+      uint32_t mh[4][4], ml[4][4], gh[4][4], gl[4][4];
+      to_a_split<4>(mt, mh, ml);
+      to_a_split<4>(gt, gh, gl);
+      hold(db);
+      hold(dx);
+      hold(mh);
+      hold(ml);
+      hold(gh);
+      hold(gl);
+      wg_fence();
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const uint64_t bc = sw128_desc(sm + T::C + (64 * it + 16 * c) * kRow,
+                                       Q * kRow, 1024);
+        const uint64_t by = sw128_desc(sm + T::DY + (64 * it + 16 * c) * kRow,
+                                       Q * kRow, 1024);
+        wgmma_rs_n128(db, mh[c], bc, 1);
+        wgmma_rs_n128(db, ml[c], bc, 1);
+        wgmma_rs_n64(dx, gh[c], by, 1);
+        wgmma_rs_n64(dx, gl[c], by, 1);
+      }
+      wg_commit();
+      wg_wait_all();
+      hold(db);
+      hold(dx);
+      hold(mh);
+      hold(ml);
+      hold(gh);
+      hold(gl);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      dw[r] += __shfl_xor_sync(0xffffffffu, dw[r], 1);
+      dw[r] += __shfl_xor_sync(0xffffffffu, dw[r], 2);
+      colt[r] += __shfl_xor_sync(0xffffffffu, colt[r], 1);
+      colt[r] += __shfl_xor_sync(0xffffffffu, colt[r], 2);
+      const int j = j0 + rl + 8 * r;
+      if (tq == 0) {
+        sDw[j] = sW[j] * dw[r];
+        sColT[j] = colt[r];
+      }
+    }
+    __nv_bfloat16* dbg = DB + (long long)bi * S * H * N + (long long)h * N;
+    __nv_bfloat16* dxg = DX + (long long)bi * S * H * P + (long long)h * P;
+#pragma unroll
+    for (int k = 0; k < 64; k += 2) {
+      const int j = j0 + rl + 8 * ((k >> 1) & 1);
+      const int c = 8 * (k >> 2) + 2 * tq;
+      if (c < N)
+        *reinterpret_cast<__nv_bfloat162*>(
+            dbg + (long long)(s0 + j) * H * N + c) =
+            __floats2bfloat162_rn(db[k], db[k + 1]);
+      if (k < 32 && c < P)
+        *reinterpret_cast<__nv_bfloat162*>(
+            dxg + (long long)(s0 + j) * H * P + c) =
+            __floats2bfloat162_rn(dx[k], dx[k + 1]);
+    }
+  }
+  __syncthreads();
+
+  // PART scan
+  // dcum, then d log a by a reverse cumulative sum, then da (one warp)
+  if (tid < 32) {
+    float hd = 0.f;
+    for (int w = 0; w < QT * kWG / 32; ++w) hd += sRed[w];
+    float dwsum = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = lane * 4 + e;
+      if (i < Q) dwsum += sDw[i];
+    }
+    dwsum = warp_sum(dwsum);
+    const float dtotal = dwsum + expf(total) * hd;
+    float v[4];
+    float run = 0.f;
+#pragma unroll
+    for (int e = 3; e >= 0; --e) {
+      const int i = lane * 4 + e;
+      float dc = 0.f;
+      if (i < Q) {
+        dc = sRowT[i] - sColT[i] + sDec[i] - sDw[i];
+        if (i == Q - 1) dc += dtotal;
+      }
+      run += dc;
+      v[e] = run;
+    }
+    float incl = run;  // sum over lanes >= lane
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_down_sync(0xffffffffu, incl, o);
+      if (lane + o < 32) incl += u;
+    }
+    const float excl = incl - run;
+    float* dag = DA + ((long long)bi * S + s0) * H + h;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = lane * 4 + e;
+      if (i < Q) dag[(long long)i * H] = sA[i] > kMinA ? (excl + v[e]) / sA[i] : 0.f;
+    }
+  }
+  // PART end
+}
+
+template <int QT, bool kVec>
+int bwd_wgmma(const void* x, const float* a, const void* b, const void* c,
+              const float* states, const void* dy, const float* dhlast,
+              void* dx, float* da, void* db, void* dc, float* dhend, int B,
+              int S, int H, int P, int N, long long xb, long long xs,
+              long long xh, long long bb, long long bs, long long bh,
+              long long cb, long long cs, long long ch, long long yb,
+              long long ys, long long yh, cudaStream_t stream) {
+  using Bf = __nv_bfloat16;
+  constexpr int Q = 64 * QT;
+  const int nq = S / Q;
+  if (nq > 1) {
+    constexpr int smem = 3 * Q * kRow + 2 * QM * 4 + 1024;
+    cudaError_t e = cudaFuncSetAttribute(
+        ssd_bwd_u_kernel<QT, kVec>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    ssd_bwd_u_kernel<QT, kVec><<<B * H * (nq - 1), 2 * kWG, smem, stream>>>(
+        (const Bf*)c, a, (const Bf*)dy, dhend, S, H, P, N, cb, cs, ch, yb, ys,
+        yh);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int np4 = N * P / 4;
+  const int decay_smem = nq * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      ssd_bwd_carry_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decay_smem);
+  if (e != cudaSuccess) return (int)e;
+  ssd_bwd_carry_kernel<<<dim3(B * H, (np4 + kThreads - 1) / kThreads),
+                         kThreads, decay_smem, stream>>>(dhend, a, dhlast, S,
+                                                         H, N * P, Q);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(ssd_bwd_chunk_kernel<QT, kVec>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           BwdTiles<QT>::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  ssd_bwd_chunk_kernel<QT, kVec><<<B * H * nq, QT * kWG, BwdTiles<QT>::SMEM,
+                                   stream>>>(
+      (const Bf*)x, a, (const Bf*)b, (const Bf*)c, states, (const Bf*)dy,
+      dhend, (Bf*)dx, da, (Bf*)db, (Bf*)dc, S, H, P, N, xb, xs, xh, bb, bs,
+      bh, cb, cs, ch, yb, ys, yh);
+  return (int)cudaGetLastError();
+}
+
+static_assert(BwdTiles<2>::SMEM <= 232448, "wgmma tiles exceed shared memory");
+
 }  // namespace
 
 // x (B, S, H, P), b and c (B, S, H, N) read through the given (batch, step,
@@ -816,4 +1503,33 @@ extern "C" int ssd_bwd_launch(const void* x, const float* a, const void* b,
   return bwd<float>(x, a, b, c, states, dy, dhlast, dx, da, db, dc, B, S, H,
                     P, N, Q, xb, xs, xh, bb, bs, bh, cb, cs, ch, yb, ys, yh,
                     st);
+}
+
+// The backward's wgmma route, for bfloat16 x, b, c, dy with a chunk Q of 64
+// or 128 and N, P multiples of 16 (up to 128 and 64), with the arguments
+// of ssd_bwd_launch and dh_end, a (B, H, S/Q, N, P) float32 scratch that
+// ends holding dH_end(q), the gradient of each chunk's end state.  Three
+// launches on the stream (passes A, B, C).  Returns the first cudaError_t.
+extern "C" int ssd_bwd_wgmma_launch(
+    const void* x, const float* a, const void* b, const void* c,
+    const float* states, const void* dy, const float* dhlast, void* dx,
+    float* da, void* db, void* dc, float* dhend, int B, int S, int H, int P,
+    int N, int Q, long long xb, long long xs, long long xh, long long bb,
+    long long bs, long long bh, long long cb, long long cs, long long ch,
+    long long yb, long long ys, long long yh, void* stream) {
+  if ((Q != 64 && Q != 128) || N < 16 || N > NM || N % 16 || P < 16 ||
+      P > PM || P % 16 || S % Q)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  auto al16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const bool vec = al16(x) && al16(b) && al16(c) && al16(dy) &&
+                   (xb | xs | xh | bb | bs | bh | cb | cs | ch | yb | ys |
+                    yh) % 8 == 0;
+#define SSD_BWD_WGMMA(QT, V)                                                  \
+  bwd_wgmma<QT, V>(x, a, b, c, states, dy, dhlast, dx, da, db, dc, dhend, B, \
+                   S, H, P, N, xb, xs, xh, bb, bs, bh, cb, cs, ch, yb, ys,   \
+                   yh, st)
+  if (Q == 128) return vec ? SSD_BWD_WGMMA(2, true) : SSD_BWD_WGMMA(2, false);
+  return vec ? SSD_BWD_WGMMA(1, true) : SSD_BWD_WGMMA(1, false);
+#undef SSD_BWD_WGMMA
 }

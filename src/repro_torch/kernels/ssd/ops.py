@@ -3,9 +3,13 @@ chunked Mamba2 scan, with a hand-written backward.
 
 A tensor on the CPU goes to the plain version in ``ref.py``
 (``ssd_chunked_ref``), differentiated by autograd.  A CUDA tensor launches
-``csrc/ssd.cu`` through ``SSDScan`` (the forward kernel, and its backward
+``csrc/ssd.cu`` through ``SSDScan`` (the forward kernel, and a backward
 kernel in autograd's backward pass) or raises: a shape its tiles cannot
 take raises, and there is no gate that quietly runs the plain version.
+The backward has two routes, chosen by ``_bwd_route`` from the dtype and
+shape alone: "wgmma" (bf16, chunk 64 or 128, N and P multiples of 16:
+three chunk-parallel launches on the tensor cores) and "simt" (the rest:
+one float32 kernel a (batch, head) that walks the chunks in reverse).
 
 b and c may be read through a head stride of 0: ``models/mamba.py``
 broadcasts one B and one C over all heads with ``expand``, and the kernel
@@ -32,6 +36,10 @@ MAX_P = 64
 launches = 0
 #: launches of the backward kernel since the count was last set to 0
 bwd_launches = 0
+#: the same count by route (``_bwd_route``): each launch adds one to its
+#: route's count and to ``bwd_launches``
+wgmma_bwd_launches = 0
+simt_bwd_launches = 0
 
 _F = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,6 +61,29 @@ def _bwd_lib():
     fn.argtypes = [_F] * 11 + [_I] * 6 + [_L] * 12 + [_I, _F]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _bwd_wgmma_lib():
+    fn = _build.load("ssd").ssd_bwd_wgmma_launch
+    fn.argtypes = [_F] * 12 + [_I] * 6 + [_L] * 12 + [_F]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_route(dtype: torch.dtype, chunk: int, n: int, p: int) -> str:
+    """The backward kernel for a dtype and shape: "wgmma" (the tensor-core
+    route of ``csrc/ssd.cu``: bf16, 64-row chunk tiles, N and P in steps of
+    16) or "simt" (float32 products, every shape ``_check`` allows)."""
+    if dtype == torch.bfloat16 and chunk % 64 == 0 and n % 16 == 0 \
+            and p % 16 == 0:
+        return "wgmma"
+    return "simt"
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t (contiguous float32) at a 16-byte aligned address, for the wgmma
+    route's float4 loads."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -151,28 +182,47 @@ def ssd_backward(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if dh_last is not None and (tuple(dh_last.shape) != (bsz, h, n, p)):
         raise ValueError(f"dh_last {tuple(dh_last.shape)} must be "
                          f"{(bsz, h, n, p)}")
+    return _launch_backward(_bwd_route(x.dtype, chunk, n, p), x, a, b, c,
+                            states, dy, dh_last, chunk)
+
+
+def _launch_backward(route: str, x, a, b, c, states, dy, dh_last, chunk):
+    """``ssd_backward``'s launch on a route, for checked arguments
+    (``tools/ssd_kernel_times.py`` times both routes at one shape)."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
     x, b, c, a = _rows(x), _rows(b), _rows(c), a.contiguous()
     dy = _rows(dy.to(x.dtype))
-    states = states.contiguous()
+    states = _aligned(states.contiguous())
     if dh_last is not None:
-        dh_last = dh_last.float().contiguous()
+        dh_last = _aligned(dh_last.float().contiguous())
     dx = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
     da = torch.empty((bsz, s, h), dtype=torch.float32, device=x.device)
     db = torch.empty((bsz, s, h, n), dtype=b.dtype, device=x.device)
     dc = torch.empty((bsz, s, h, n), dtype=c.dtype, device=x.device)
-    fn = _bwd_lib()
+    ptrs = (x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            states.data_ptr(), dy.data_ptr(),
+            None if dh_last is None else dh_last.data_ptr(), dx.data_ptr(),
+            da.data_ptr(), db.data_ptr(), dc.data_ptr())
+    strides = (*_strides(x), *_strides(b), *_strides(c), *_strides(dy))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.check(fn(x.data_ptr(), a.data_ptr(), b.data_ptr(),
-                        c.data_ptr(), states.data_ptr(), dy.data_ptr(),
-                        None if dh_last is None else dh_last.data_ptr(),
-                        dx.data_ptr(), da.data_ptr(), db.data_ptr(),
-                        dc.data_ptr(), bsz, s, h, p, n, chunk, *_strides(x),
-                        *_strides(b), *_strides(c), *_strides(dy),
-                        int(x.dtype == torch.bfloat16), stream),
-                     "ssd backward")
-    global bwd_launches
+        if route == "wgmma":
+            # dH_end(q) of every chunk: the route's only scratch, float32
+            dh_end = torch.empty((bsz, h, s // chunk, n, p),
+                                 dtype=torch.float32, device=x.device)
+            code = _bwd_wgmma_lib()(*ptrs, dh_end.data_ptr(), bsz, s, h, p,
+                                    n, chunk, *strides, stream)
+        else:
+            code = _bwd_lib()(*ptrs, bsz, s, h, p, n, chunk, *strides,
+                              int(x.dtype == torch.bfloat16), stream)
+        _build.check(code, f"ssd backward ({route})")
+    global bwd_launches, wgmma_bwd_launches, simt_bwd_launches
     bwd_launches += 1
+    if route == "wgmma":
+        wgmma_bwd_launches += 1
+    else:
+        simt_bwd_launches += 1
     return dx, da, db, dc
 
 

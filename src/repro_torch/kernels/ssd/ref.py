@@ -88,6 +88,120 @@ def ssd_chunked_ref(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return y.to(x.dtype), hprev
 
 
+def _chunked(t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(B, S, H, K) as float32 (B, H, S/chunk, chunk, K)."""
+    bsz, s, h, k = t.shape
+    return t.float().reshape(bsz, s // chunk, chunk, h, k).permute(
+        0, 3, 1, 2, 4)
+
+
+def _chunk_cum(a: torch.Tensor, chunk: int) -> torch.Tensor:
+    """cum of log max(a, 1e-37) inside each chunk: (B, H, S/chunk, chunk)."""
+    bsz, s, h = a.shape
+    loga = torch.log(torch.clamp_min(a.float(), 1e-37))
+    return torch.cumsum(loga.reshape(bsz, s // chunk, chunk, h).permute(
+        0, 3, 1, 2), dim=-1)
+
+
+def chunk_states(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Every chunk's starting state (B, H, S/chunk, N, P) float32, as the
+    forward kernel keeps them for the backward (the first is zero)."""
+    xq, bq = _chunked(x, chunk), _chunked(b, chunk)
+    cum = _chunk_cum(a, chunk)
+    total = cum[..., -1]
+    w = torch.exp(total[..., None] - cum)
+    upd = torch.einsum("bhqin,bhqip->bhqnp", bq * w[..., None], xq)
+    hs = [torch.zeros_like(upd[:, :, 0])]
+    for q in range(upd.shape[2] - 1):
+        hs.append(torch.exp(total[:, :, q])[..., None, None] * hs[-1]
+                  + upd[:, :, q])
+    return torch.stack(hs, dim=2)
+
+
+def _exact(name: str, t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def ssd_backward_ref(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                     c: torch.Tensor, states: torch.Tensor, dy: torch.Tensor,
+                     dh_last: Optional[torch.Tensor], chunk: int,
+                     operand=_exact) -> Tuple[torch.Tensor, ...]:
+    """The chunk-parallel backward of ``ssd_chunked_ref``, in the order of
+    the wgmma route of ``csrc/ssd.cu``, in float32: (dx, da, db, dc), db
+    and dc a head at a time.  It is the oracle of that design (three passes), not of
+    the function, which is autograd of ``ssd_chunked_ref``.
+
+    A: per chunk q, U_q = (C o e)^T dY with e = exp(cum).
+    B: across chunks in reverse, dH_end(last) = dh_last (or 0) and
+       dH_end(q) = exp(total_{q+1}) dH_end(q+1) + U_{q+1}: the gradient of
+       chunk q's end state.
+    C: per chunk, from H_prev = states[q] and dH = dH_end(q), with
+       G = C B^T, dS = dY X^T, L[i, j] = exp(cum_i - cum_j) (i >= j, masked
+       before the exp), M = dS o L, T = M o G, w = exp(total - cum):
+         dx = w o (B dH) + (G o L)^T dY,
+         dc = e o (dY H_prev^T) + M B,
+         db = w o (X dH^T) + M^T C,
+         dcum_i = sum_j T_ij - sum_j T_ji + e_i c_i . (dY H_prev^T)_i
+                  - w_i dw_i + [i = Q-1] (sum_j w_j dw_j
+                  + exp(total) <H_prev, dH>),  dw = rowsum(B o X dH^T),
+         d log a = the reverse cumulative sum of dcum inside the chunk,
+         da = d log a / a where a > 1e-37, else 0.
+
+    ``operand(name, t)`` gives the float32 operand ``t`` of a product as
+    the tensor cores see it (``tools/ssd_rounding.py``); the names are
+    "Ce" (C o e in U), "GL" (G o L in dx), "M" (M in dc and db), "Hp"
+    (H_prev in dc) and "dH" (dH in dx and db).  The default keeps them
+    exact."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    nq = s // chunk
+    xq, bq, cq, dyq = (_chunked(t, chunk) for t in (x, b, c, dy))
+    cum = _chunk_cum(a, chunk)                         # (B, H, nq, Q)
+    total = cum[..., -1]
+    e = torch.exp(cum)
+    w = torch.exp(total[..., None] - cum)
+    # A: U_q, chunk-parallel
+    u = torch.einsum("bhqin,bhqip->bhqnp", operand("Ce", cq * e[..., None]),
+                     dyq)
+    # B: dH_end across chunks, in reverse
+    run = (torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+           if dh_last is None else dh_last.float())
+    dhs = [None] * nq
+    for q in range(nq - 1, -1, -1):
+        dhs[q] = run
+        run = torch.exp(total[:, :, q])[..., None, None] * run + u[:, :, q]
+    dh = torch.stack(dhs, dim=2)                       # (B, H, nq, N, P)
+    hp = states.float()
+    # C: the outputs, chunk-parallel
+    idx = torch.arange(chunk, device=x.device)
+    live = idx[:, None] >= idx[None, :]
+    lmat = torch.exp(torch.where(live, cum[..., :, None] - cum[..., None, :],
+                                 -torch.inf))
+    g = cq @ bq.transpose(-1, -2)
+    m = (dyq @ xq.transpose(-1, -2)) * lmat
+    t = m * g
+    dmat = dyq @ operand("Hp", hp).transpose(-1, -2)   # dY H_prev^T
+    dc = e[..., None] * dmat + operand("M", m) @ bq
+    xdh = xq @ operand("dH", dh).transpose(-1, -2)     # X dH^T
+    dw = (bq * xdh).sum(-1)
+    db = w[..., None] * xdh + operand("M", m).transpose(-1, -2) @ cq
+    dx = w[..., None] * (bq @ operand("dH", dh)) + \
+        operand("GL", g * lmat).transpose(-1, -2) @ dyq
+    dcum = t.sum(-1) - t.sum(-2) + e * (cq * dmat).sum(-1) - w * dw
+    dcum[..., -1] += (w * dw).sum(-1) + torch.exp(total) * (hp * dh).sum(
+        (-1, -2))
+    dloga = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+    af = a.float()
+    dloga = dloga.permute(0, 2, 3, 1).reshape(bsz, s, h)
+    da = torch.where(af > 1e-37, dloga / af, torch.zeros_like(af))
+
+    def rows(t):  # (B, H, nq, Q, K) -> (B, S, H, K)
+        return t.permute(0, 2, 3, 1, 4).reshape(bsz, s, h, t.shape[-1])
+
+    return rows(dx), da, rows(db), rows(dc)
+
+
 def row_excess(got: torch.Tensor, want: torch.Tensor, row_dims: int = 1,
                rel: float = 2.0 ** -8) -> float:
     """How far ``got`` lies from its oracle ``want``, in units of a

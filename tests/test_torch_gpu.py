@@ -645,7 +645,23 @@ _SSD_CASES = [  # (B, S, H, P, N, chunk, smallest decay, B and C shared)
     (1, 96, 1, 8, 4, 32, 0.7, False), (1, 200, 3, 24, 20, 40, 0.5, True),
     (2, 512, 4, 64, 128, 128, 0.5, True), (1, 384, 2, 64, 128, 128, 1e-6,
                                           False),
-    (1, 256, 3, 64, 64, 64, 1e-6, True)]
+    (1, 256, 3, 64, 64, 64, 1e-6, True),
+    # the backward's wgmma route (bf16): per-head B and C at chunk 64 with
+    # N and P below their tiles, one chunk only, and the train widths
+    (1, 256, 2, 32, 48, 64, 0.5, False), (2, 64, 3, 16, 16, 64, 0.9, False),
+    (2, 384, 3, 64, 128, 128, 1e-3, False)]
+
+
+def _ssd_route(dtype, p, n, chunk):
+    """The backward's route, as ``ssd/ops.py::_bwd_route`` must choose it:
+    the tensor cores for bf16 at chunk 64 or 128 with N and P multiples of
+    16, the float32 SIMT kernel for everything else."""
+    return ("wgmma" if dtype == torch.bfloat16 and chunk in (64, 128)
+            and n % 16 == 0 and p % 16 == 0 else "simt")
+
+
+def _bwd_counts(ssd_ops):
+    return ssd_ops.wgmma_bwd_launches, ssd_ops.simt_bwd_launches
 
 
 def _ssd_inputs(cuda, b, s, h, p, n, lo, shared, dtype, seed):
@@ -697,12 +713,14 @@ def test_ssd_kernel(cuda, b, s, h, p, n, chunk, lo, shared, dtype):
     |value| + 2^-12 of its row's max in float32 (sums in another order,
     cum rounded differently), 2^-8 (one bfloat16 rounding) in bfloat16.
     da is compared as d log a = da * a.  One forward and one backward
-    launch each."""
+    launch each, the backward on the route ``_ssd_route`` names (h_last's
+    gradient nonzero on both)."""
     from repro_torch.kernels.ssd import ops as ssd_ops
 
     x, a, bb, cc, dy, dh = _ssd_inputs(cuda, b, s, h, p, n, lo, shared,
                                        dtype, seed=s + 7 * n + p)
     f0, b0 = ssd_ops.launches, ssd_ops.bwd_launches
+    r0 = _bwd_counts(ssd_ops)
     xs = [t.detach().requires_grad_(True) for t in (x, a)]
     # gradients of b and c taken at the expanded views: a head at a time
     bl = (bb[:, :, :1] if shared else bb).detach().requires_grad_(True)
@@ -712,6 +730,10 @@ def test_ssd_kernel(cuda, b, s, h, p, n, chunk, lo, shared, dtype):
     dx, da, db, dc = torch.autograd.grad((y, hl), (*xs, be, ce), (dy, dh))
     torch.cuda.synchronize()
     assert (ssd_ops.launches, ssd_ops.bwd_launches) == (f0 + 1, b0 + 1)
+    route = _ssd_route(dtype, p, n, chunk)
+    assert ssd_ops._bwd_route(dtype, chunk, n, p) == route
+    assert tuple(c - c0 for c, c0 in zip(_bwd_counts(ssd_ops), r0)) == (
+        (1, 0) if route == "wgmma" else (0, 1))
     assert y.dtype == dx.dtype == db.dtype == dc.dtype == dtype
     assert hl.dtype == da.dtype == torch.float32
     want = _ssd_want(x, a, bb, cc, dy, dh, chunk)
@@ -720,17 +742,20 @@ def test_ssd_kernel(cuda, b, s, h, p, n, chunk, lo, shared, dtype):
     assert max(excess.values()) <= 1, excess
 
 
-def test_ssd_row_tolerance_rejects_planted_faults(cuda):
-    """At the train path's widths (P 64, N 128, chunk 128, bf16, B and C
-    shared) the kernel passes ``row_excess`` while two planted faults
-    fail it: the state not carried across one chunk boundary (the
-    sequence run in two halves) and the decays of the wrong head."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_row_tolerance_rejects_planted_faults(cuda, dtype):
+    """At the train path's widths (P 64, N 128, chunk 128, B and C shared)
+    the kernels pass ``row_excess`` while two planted faults fail it: the
+    state not carried across one chunk boundary (the sequence run in two
+    halves) and the decays of the wrong head; the backward on the wgmma
+    route in bf16, on the simt route in float32."""
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import row_excess
 
     b, s, h, p, n, q = 2, 1024, 8, 64, 128, 128
     x, a, bb, cc, dy, _ = _ssd_inputs(cuda, b, s, h, p, n, 1e-3, True,
-                                      torch.bfloat16, seed=5)
+                                      dtype, seed=5)
+    r0 = _bwd_counts(ssd_ops)
     (wy, _), (wx, *_) = _ssd_want(x, a, bb, cc, dy, torch.zeros(
         b, h, n, p, device=cuda), q)
 
@@ -748,6 +773,65 @@ def test_ssd_row_tolerance_rejects_planted_faults(cuda):
     for name, (my, mdx) in {"no carry": [torch.cat(t, 1) for t in zip(
             *halves)], "rolled a": rolled}.items():
         assert row_excess(my, wy) > 1 and row_excess(mdx, wx) > 1, name
+    wgmma = _ssd_route(dtype, p, n, q) == "wgmma"
+    assert tuple(c - c0 for c, c0 in zip(_bwd_counts(ssd_ops), r0)) == (
+        (4, 0) if wgmma else (0, 4))
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_ssd_bwd_wgmma_is_deterministic(cuda, shared):
+    """The wgmma route writes every output element from one CTA, with no
+    atomics: two calls on the same inputs are equal bit for bit, with
+    h_last's gradient None, zero (equal to None) and nonzero (held against
+    autograd of the plain version, as ``test_ssd_kernel``)."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    b, s, h, p, n, q = 2, 512, 4, 64, 128, 128
+    x, a, bb, cc, dy, dh = _ssd_inputs(cuda, b, s, h, p, n, 1e-3, shared,
+                                       torch.bfloat16, seed=9)
+    _, _, st = ssd_ops.ssd_forward(x, a, bb, cc, q, keep_states=True)
+    r0 = _bwd_counts(ssd_ops)
+    runs = {k: [ssd_ops.ssd_backward(x, a, bb, cc, st, dy, g, q)
+                for _ in range(2)]
+            for k, g in (("none", None), ("zero", torch.zeros_like(dh)),
+                         ("dh", dh))}
+    torch.cuda.synchronize()
+    assert tuple(c - c0 for c, c0 in zip(_bwd_counts(ssd_ops), r0)) == (6, 0)
+    for k, (one, two) in runs.items():
+        assert all(torch.equal(u, v) for u, v in zip(one, two)), k
+    assert all(torch.equal(u, v) for u, v in zip(runs["none"][0],
+                                                 runs["zero"][0]))
+    want = _ssd_want(x, a, bb, cc, dy, dh, q)
+    y, hl, _ = ssd_ops.ssd_forward(x, a, bb, cc, q)
+    excess = _ssd_excess((y, hl, *runs["dh"][0]), want, a, q, 2.0 ** -8)
+    assert max(excess.values()) <= 1, excess
+
+
+def test_ssd_bwd_wgmma_reads_unaligned_rows(cuda):
+    """Rows that do not start on 16 bytes (views one column into wider
+    tensors) take the wgmma route's element-at-a-time staging and give
+    the same bits as 16-byte-aligned copies of the same values."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    b, s, h, p, n, q = 1, 256, 2, 32, 48, 64
+    x, a, bb, cc, dy, dh = _ssd_inputs(cuda, b, s, h, p, n, 0.5, False,
+                                       torch.bfloat16, seed=11)
+
+    def shifted(t):  # the same values one column into a wider tensor
+        wide = torch.zeros(*t.shape[:-1], t.shape[-1] + 1, dtype=t.dtype,
+                           device=cuda)
+        wide[..., 1:] = t
+        return wide[..., 1:]
+
+    _, _, st = ssd_ops.ssd_forward(x, a, bb, cc, q, keep_states=True)
+    r0 = _bwd_counts(ssd_ops)
+    want = ssd_ops.ssd_backward(x, a, bb, cc, st, dy, dh, q)
+    got = ssd_ops.ssd_backward(shifted(x), a, shifted(bb), shifted(cc), st,
+                               shifted(dy), dh, q)
+    torch.cuda.synchronize()
+    assert shifted(x).data_ptr() % 16 != 0
+    assert tuple(c - c0 for c, c0 in zip(_bwd_counts(ssd_ops), r0)) == (2, 0)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
 
 
 def test_ssd_refuses_what_it_cannot_take(cuda):

@@ -28,8 +28,9 @@ from repro.kernels.ssd.ref import ssd_ref as r_ssd_ref
 from repro.models import mamba as r_mamba
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.ssd import ops as tsops
-from repro_torch.kernels.ssd.ref import (da_rows, row_excess,
-                                         ssd_chunked_ref, ssd_ref)
+from repro_torch.kernels.ssd.ref import (chunk_states, da_rows, row_excess,
+                                         ssd_backward_ref, ssd_chunked_ref,
+                                         ssd_ref)
 from repro_torch.models import mamba as t_mamba
 
 CASES = [(2, 64, 2, 16, 8, 16, 0.7), (1, 128, 4, 32, 16, 32, 0.7),
@@ -102,6 +103,47 @@ def test_plain_ssd_grads_match_jax_grad(b, s, h, p, n, chunk, lo):
     assert _excess(got[3], want[3]) <= 1
 
 
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("b,s,h,p,n,chunk,lo", CASES)
+def test_chunk_parallel_backward_matches_jax_grad(b, s, h, p, n, chunk, lo,
+                                                  with_dh):
+    """``ssd_backward_ref`` (the three passes of the wgmma route: U a chunk,
+    the carry of dH across chunks, the outputs a chunk) from
+    ``chunk_states``' float32 chunk-start states against ``jax.grad`` of
+    the reference's chunked scan and autograd of the port's, with the
+    gradient of h_last zero and nonzero; the states against the
+    reference's scan run up to each chunk's start."""
+    arrs = _inputs(b, s, h, p, n, lo)
+    rng = np.random.default_rng(1)
+    dy = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    dh = (rng.normal(size=(b, h, n, p)) if with_dh
+          else np.zeros((b, h, n, p))).astype(np.float32)
+
+    def f(*xs):
+        y, hl = rsops.ssd_chunked_ref(*xs, chunk=chunk)
+        return jnp.sum(y * dy) + jnp.sum(hl * dh)
+
+    want = jax.grad(f, argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in arrs))
+    xs = [t.requires_grad_(True) for t in _t(arrs)]
+    y, hl = ssd_chunked_ref(*xs, chunk=chunk)
+    mine = torch.autograd.grad((y, hl), xs, (torch.from_numpy(dy),
+                                             torch.from_numpy(dh)))
+    states = chunk_states(*_t(arrs), chunk)
+    for q in range(1, s // chunk):
+        _, hq = r_ssd_ref(*(jnp.asarray(a[:, :q * chunk]) for a in arrs))
+        assert _excess(states[:, :, q], hq, 2) <= 1
+    got = ssd_backward_ref(*_t(arrs), states, torch.from_numpy(dy),
+                           torch.from_numpy(dh) if with_dh else None, chunk)
+    assert all(torch.isfinite(g).all() for g in got)
+    a = torch.from_numpy(arrs[1])
+    for oracle in (want, mine):
+        assert _excess(got[0], oracle[0]) <= 1
+        assert row_excess(da_rows(got[1] * a, chunk), da_rows(
+            torch.as_tensor(np.array(oracle[1])) * a, chunk), 1, REL) <= 1
+        assert _excess(got[2], oracle[2]) <= 1
+        assert _excess(got[3], oracle[3]) <= 1
+
+
 def test_ssd_on_the_cpu_is_the_plain_version():
     """``ssd`` on CPU tensors runs ``ssd_chunked_ref`` (with a carried-in
     state too, as the reference's fallback) and launches nothing."""
@@ -146,6 +188,22 @@ def test_kernel_refuses_shapes_before_building():
         tsops.ssd_backward(*ok, None, ok[0], None, 32)
     with pytest.raises(ValueError, match="chunk of 1..128"):
         tsops.ssd_forward(*[torch.cat([t] * 4, 1) for t in ok], 256)
+
+
+@pytest.mark.parametrize("dtype,chunk,n,p,route", [
+    (torch.bfloat16, 128, 128, 64, "wgmma"), (torch.bfloat16, 64, 48, 32,
+                                               "wgmma"),
+    (torch.bfloat16, 64, 16, 16, "wgmma"), (torch.float32, 128, 128, 64,
+                                             "simt"),
+    (torch.bfloat16, 32, 128, 64, "simt"), (torch.bfloat16, 40, 128, 64,
+                                             "simt"),
+    (torch.bfloat16, 128, 20, 64, "simt"), (torch.bfloat16, 128, 128, 24,
+                                             "simt")])
+def test_backward_route_by_dtype_and_shape(dtype, chunk, n, p, route):
+    """The backward's route comes from the dtype and shape alone: the
+    tensor cores for bf16 at chunk 64 or 128 with N and P multiples of
+    16, the float32 SIMT kernel for the rest."""
+    assert tsops._bwd_route(dtype, chunk, n, p) == route
 
 
 def test_row_excess_passes_roundings_and_rejects_planted_faults():
