@@ -65,7 +65,8 @@ kernel against its plain PyTorch version on the card:
    vocab 50,280, bfloat16, 1.44 B parameters) through the same steps at
    the same 2 x 4,096: every loss finite, the first within 1.5 of ln(V),
    the SSD kernel launched 2 x 48 times a step forward (remat) and 48
-   times backward, every backward on the tensor-core ("wgmma") route ->
+   times backward, every launch, forward and backward, on the tensor-core
+   ("wgmma") route ->
    one ``{"train_ssm": ...}`` line (the same readings;
    MFU counts 6 N T + 3 x the SSD forward's own FLOP) with a plain witness
    that runs ``ssd_chunked_ref`` under autograd in place of the kernels,
@@ -87,12 +88,13 @@ kernel against its plain PyTorch version on the card:
    The ``score_all`` and ``bilinear`` entries name the quadratic form's
    route (chosen by R in ``quad_form.cuh``: "resident" at R = 200) and must
    have taken it, with the paths' launches by route beside the totals.
-   The ``ssd_bwd`` entry runs the backward's tensor-core route at the
-   train shape (``csrc/ssd.cu``'s three CUDA kernels, each counted once
-   in a profiler trace of one call at that shape, taken right after the
-   build, HGMMA in its SASS, every float32 operand a bf16 pair hi + lo)
-   with the float32 SIMT kernel, the other route, timed beside it on the
-   same inputs;
+   The ``ssd`` and ``ssd_bwd`` entries run the forward's and the
+   backward's tensor-core routes at the train shape (``csrc/ssd.cu``'s
+   three CUDA kernels each, each counted once in a profiler trace of one
+   call at that shape, taken right after the build, HGMMA in the SASS,
+   every float32 operand a bf16 pair hi + lo, two calls equal) with the
+   float32 SIMT kernel, the other route, timed beside it on the same
+   inputs (the forward's chunk-start states held to the SIMT kernel's);
 9. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero (an exception's traceback, or a FAIL line)
@@ -304,8 +306,9 @@ def _route_owners():
     """(kernel name, module, {route: attribute}) of every kernel whose
     launches are also counted by route: flash's (``attention/ops.py::
     _route``), the quadratic form's (chosen by R in ``quad_form.cuh``) and
-    the SSD backward's (``ssd/ops.py::_bwd_route``).  Each launch adds one
-    to its route's count and to the kernel's total."""
+    the SSD forward's and backward's (``ssd/ops.py::_fwd_route``,
+    ``_bwd_route``).  Each launch adds one to its route's count and to the
+    kernel's total."""
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.bilinear import ops as bilinear_ops
     from repro_torch.kernels.mcmc_score import ops as mcmc_score_ops
@@ -318,6 +321,8 @@ def _route_owners():
              {"wgmma": "wgmma_bwd_launches", "simt": "simt_bwd_launches"}),
             ("score_all", mcmc_score_ops, quad),
             ("bilinear", bilinear_ops, quad),
+            ("ssd", ssd_ops,
+             {"wgmma": "wgmma_fwd_launches", "simt": "simt_fwd_launches"}),
             ("ssd_bwd", ssd_ops,
              {"wgmma": "wgmma_bwd_launches", "simt": "simt_bwd_launches"}))
 
@@ -1569,6 +1574,10 @@ def run_train_ssm():
     n_steps = 2 + TRAIN_STEPS
     check_launches(run["launches"], "ssd", 2 * cfg.n_layers * n_steps,
                    f"2 x {cfg.n_layers} a step (remat) over {n_steps} steps")
+    check_launches(run["launches"], "ssd.wgmma", 2 * cfg.n_layers * n_steps,
+                   f"2 x {cfg.n_layers} a step over {n_steps} steps, all on "
+                   f"the wgmma route")
+    check_launches(run["launches"], "ssd.simt", 0, "none on the simt route")
     check_launches(run["launches"], "ssd_bwd", cfg.n_layers * n_steps,
                    f"{cfg.n_layers} a step over {n_steps} steps")
     check_launches(run["launches"], "ssd_bwd.wgmma", cfg.n_layers * n_steps,
@@ -1607,6 +1616,7 @@ def run_train_ssm():
         "recompute not counted",
         d_inner=cfg.d_inner, n_mamba_heads=cfg.n_mamba_heads,
         head_dim=mc.head_dim, d_state=mc.d_state, chunk=mc.chunk,
+        ssd_routes=by_route(run["launches"], "ssd"),
         ssd_bwd_routes=by_route(run["launches"], "ssd_bwd"),
         ssd_fwd_flop_per_layer=ssd_fwd_flop(
             TRAIN_BATCH, seq, cfg.n_mamba_heads, mc.head_dim, mc.d_state,
@@ -2070,18 +2080,11 @@ def _ssd_shape(x, b, chunk):
             "b_c_head_stride": b.stride(2)}
 
 
-def trace_ssd_bwd():
-    """One call of the SSD backward at the train_ssm path's shape (its
-    layer's x, B, C and dy in bf16, a in float32, B and C one row over the
-    heads) on seeded inputs, traced by ``torch.profiler``: the CUDA
-    kernels it launched, counted by name, and the shape.
-    ``main`` takes it right after the build: later in the run the
-    profiler drops the kernels of a short window (on the H100 one call's
-    three kernels were traced 3, 2, 1, then 0 times as the phases went by,
-    with or without idle time around the call)."""
+def _ssd_trace_inputs():
+    """Seeded inputs at the train_ssm path's shape: its layer's x, B, C
+    and a dy in bf16, a in float32, B and C one row over the heads."""
     import torch
     from repro_torch.configs import SHAPES, get_config
-    from repro_torch.kernels.ssd import ops
 
     cfg = get_config(TRAIN_SSM_ARCH)
     bsz, s = TRAIN_BATCH, SHAPES[TRAIN_SHAPE].seq_len
@@ -2097,33 +2100,108 @@ def trace_ssd_bwd():
     a = torch.sigmoid(rand(bsz, s, h))
     b = rand(bsz, s, 1, n).bfloat16().expand(bsz, s, h, n)
     c = rand(bsz, s, 1, n).bfloat16().expand(bsz, s, h, n)
-    states = ops.ssd_forward(x, a, b, c, chunk, keep_states=True)[2]
-    call = lambda: ops.ssd_backward(x, a, b, c, states, dy, None, chunk)
+    return x, a, b, c, dy, chunk
+
+
+#: traces of one call taken at most, while a trace holds no kernel of the
+#: call at all (``_trace_kernels``)
+TRACE_ATTEMPTS = 3
+
+
+def _trace_kernels(call, prefix: str) -> dict:
+    """The CUDA kernels whose names hold ``prefix`` that one ``call()``
+    launched, counted by name, from a ``torch.profiler`` trace (after one
+    untraced call), and the number of traces taken: a trace that holds
+    none of them is taken again, up to TRACE_ATTEMPTS times (on the H100
+    the first trace of a fresh process has come back without any kernel;
+    a trace that holds some is kept as it is)."""
     call()
-    counts = {}
-    for key, _, count in profile_window(call, "ssd_bwd")["tracked"][
-            "kernels_ms"]:
-        name = re.search(r"ssd_bwd\w*", key).group(0)
-        counts[name] = counts.get(name, 0) + count
-    return {"kernels": counts, "shape": _ssd_shape(x, b, chunk)}
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        counts = {}
+        for key, _, count in profile_window(call, prefix)["tracked"][
+                "kernels_ms"]:
+            name = re.search(prefix + r"\w*", key).group(0)
+            counts[name] = counts.get(name, 0) + count
+        if counts:
+            break
+    return {"kernels": counts, "attempts": attempt}
 
 
-def check_ssd(xabc, chunk, launches):
+def trace_ssd_fwd():
+    """One call of the SSD forward at the train_ssm path's shape
+    (``_ssd_trace_inputs``), keeping its states as training does, traced
+    by ``torch.profiler``: the CUDA kernels it launched, counted by name,
+    and the shape.  ``main`` takes it right after the build, as
+    ``trace_ssd_bwd``."""
+    from repro_torch.kernels.ssd import ops
+
+    x, a, b, c, _, chunk = _ssd_trace_inputs()
+    return dict(_trace_kernels(lambda: ops.ssd_forward(
+        x, a, b, c, chunk, keep_states=True), "ssd_fwd"),
+        shape=_ssd_shape(x, b, chunk))
+
+
+def trace_ssd_bwd():
+    """One call of the SSD backward at the train_ssm path's shape
+    (``_ssd_trace_inputs``) traced by ``torch.profiler``: the CUDA kernels
+    it launched, counted by name, and the shape.  ``main`` takes it right
+    after the build: later in the run the profiler drops the kernels of a
+    short window (on the H100 one call's three kernels were traced 3, 2,
+    1, then 0 times as the phases went by, with or without idle time
+    around the call)."""
+    from repro_torch.kernels.ssd import ops
+
+    x, a, b, c, dy, chunk = _ssd_trace_inputs()
+    states = ops.ssd_forward(x, a, b, c, chunk, keep_states=True)[2]
+    return dict(_trace_kernels(lambda: ops.ssd_backward(
+        x, a, b, c, states, dy, None, chunk), "ssd_bwd"),
+        shape=_ssd_shape(x, b, chunk))
+
+
+#: the forward's wgmma route's float32 operands, each entering its product
+#: as a bf16 pair hi + lo (``tools/ssd_rounding.py --direction fwd``: any
+#: one rounded once fails or nearly fails the tolerances below)
+SSD_FWD_SPLIT = ["B o w (S_q)", "H_prev (y)", "G o L (y)"]
+#: the CUDA kernels a call of the forward's wgmma route must launch, once
+#: each: S_q a chunk, the carry of the states across chunks, y a chunk tile
+SSD_FWD_WGMMA_KERNELS = ("ssd_fwd_state_kernel", "ssd_fwd_carry_kernel",
+                         "ssd_fwd_chunk_kernel")
+
+
+def check_ssd(xabc, chunk, launches, traced):
     """Kernel 8's forward on layer 0's x, a, B, C of a timed SSM train step
     (B and C read through a head stride of 0, as the path reads them)
-    against the plain version in float32 on the same inputs."""
+    against the plain version in float32 on the same inputs.  The train
+    shape takes the wgmma route; the SIMT kernel (the simt route, which
+    takes float32 and the other shapes) runs beside it on the same inputs
+    through its own C entry, and the two routes' chunk-start states are
+    held to each other.  ``traced``: ``trace_ssd_fwd()``'s count of the
+    route's CUDA kernels, which must be each of its three once, at the same
+    shape."""
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ssd import ops, ref
 
     x, a, b, c = xabc
     s = x.shape[1]
-    y, hl, _ = ops.ssd_forward(x, a, b, c, chunk)
+    (y, hl, states), routes = route_delta("ssd", lambda: ops.ssd_forward(
+        x, a, b, c, chunk, keep_states=True))
+    again = ops.ssd_forward(x, a, b, c, chunk, keep_states=True)
+    deterministic = all(bool(torch.equal(u, v))
+                        for u, v in zip((y, hl, states), again))
+    del again
+    sy, shl, sstates = ops._launch_forward("simt", x, a, b, c, chunk, True)
     want, want_h = ref.ssd_chunked_ref(x.float(), a, b.float(), c.float(),
                                        chunk=chunk)
     torch.cuda.synchronize()
     err = float((y.float() - want).abs().max())
     excess = {"y": ref.row_excess(y, want, 1, SSD_REL_BF16),
               "h_last": ref.row_excess(hl, want_h, 2, SSD_REL_F32)}
+    simt_excess = {"y": ref.row_excess(sy, want, 1, SSD_REL_BF16),
+                   "h_last": ref.row_excess(shl, want_h, 2, SSD_REL_F32)}
+    # the states the backward reads, against the simt route's
+    states_excess = ref.row_excess(states, sstates, 2, SSD_REL_F32)
+    del sy, shl, sstates, states
     # planted faults the tolerance must reject
     k = s // 2
     halves = torch.cat([ops.ssd_forward(x[:, sl], a[:, sl], b[:, sl],
@@ -2135,8 +2213,16 @@ def check_ssd(xabc, chunk, launches):
                "y, decays of head (h - 1) % H": ref.row_excess(
                    rolled, want, 1, SSD_REL_BF16)}
     del halves, rolled, want, want_h
-    ok = max(excess.values()) <= 1 and all(v > 1 for v in mutants.values())
+    hgmma = "HGMMA" in _build.sass("ssd")
+    cuda_kernels = traced["kernels"]
+    ok = (max(excess.values()) <= 1 and all(v > 1 for v in mutants.values())
+          and routes == {"wgmma": 1, "simt": 0} and hgmma and deterministic
+          and max(simt_excess.values()) <= 1 and states_excess <= 1
+          and cuda_kernels == dict.fromkeys(SSD_FWD_WGMMA_KERNELS, 1)
+          and traced["shape"] == _ssd_shape(x, b, chunk))
     ms = cuda_ms(lambda: ops.ssd_forward(x, a, b, c, chunk), reps=10)
+    simt_ms = cuda_ms(lambda: ops._launch_forward("simt", x, a, b, c, chunk,
+                                                  False), reps=5)
     plain_ms = cuda_ms(lambda: ref.ssd_chunked_ref(x, a, b, c, chunk=chunk),
                        reps=3)
     bsz, _, h, p = x.shape
@@ -2144,6 +2230,15 @@ def check_ssd(xabc, chunk, launches):
     n_bytes = _ssd_bytes(x, a, b, c, backward=False)
     bms, by = bound(n_bytes, n_flop, BF16_FLOP_PER_S)
     return {"name": "ssd", "route": "cuda",
+            "ssd_route": "wgmma", "route_launches": routes,
+            "cuda_launches_per_call": sum(cuda_kernels.values()),
+            "cuda_kernels_per_call": cuda_kernels,
+            "cuda_kernels_traced": "one call on seeded inputs of this "
+                                   "shape, by torch.profiler, right after "
+                                   "the build",
+            "cuda_kernels_trace_attempts": traced["attempts"],
+            "sass_has_hgmma": hgmma, "split": SSD_FWD_SPLIT,
+            "deterministic": deterministic,
             "source": "src/repro_torch/csrc/ssd.cu",
             "replaces": "src/repro/kernels/ssd/ssd.py:80",
             "launches": launches, "max_abs_err": err, "excess": excess,
@@ -2155,18 +2250,27 @@ def check_ssd(xabc, chunk, launches):
                          "every element within rel |value| + rel of its "
                          "row's max + rel 2^-8 of the global max, rel = "
                          "2^-8 for y, 2^-12 for h_last (excess <= 1); each "
-                         "planted fault rejected (excess > 1)",
+                         "planted fault rejected (excess > 1); the launch "
+                         "on the wgmma route, HGMMA in the SASS, two calls "
+                         "equal, one call's trace holding each of the "
+                         "route's three CUDA kernels once; the simt route "
+                         "within the same tolerances, and the two routes' "
+                         "chunk-start states within h_last's",
             "ok": ok, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by,
             "bound_ms_fp32_fma": max(n_bytes / HBM_BYTES_PER_S,
                                      n_flop / FP32_FLOP_PER_S) * 1e3,
             "flop": n_flop, "bytes": n_bytes, "library_ms": None,
             "library": "none (no single PyTorch call)",
-            "shape": _ssd_shape(x, b, chunk)}
+            "shape": _ssd_shape(x, b, chunk),
+            "simt": {"ms": simt_ms, "excess": simt_excess,
+                     "states_excess_vs_wgmma": states_excess,
+                     "what": "the SIMT kernel (the simt route) on the "
+                             "same bf16 inputs, timed in this process"}}
 
 
-#: the wgmma route's float32 operands, each entering its product as a bf16
-#: pair hi + lo (``tools/ssd_rounding.py``: any one rounded once fails or
+#: the backward's wgmma route's float32 operands, each entering its
+#: product as a bf16 pair hi + lo (``tools/ssd_rounding.py``: any one rounded once fails or
 #: nearly fails the tolerances below)
 SSD_BWD_SPLIT = ["C o e (U)", "G o L (dx)", "M (dc, db)", "H_prev (dc)",
                  "dH (dx, db)"]
@@ -2262,6 +2366,7 @@ def check_ssd_bwd(xabc, chunk, launches, traced):
             "cuda_kernels_traced": "one call on seeded inputs of this "
                                    "shape, by torch.profiler, right after "
                                    "the build",
+            "cuda_kernels_trace_attempts": traced["attempts"],
             "sass_has_hgmma": hgmma, "split": SSD_BWD_SPLIT,
             "deterministic": deterministic,
             "source": "src/repro_torch/csrc/ssd.cu",
@@ -2330,6 +2435,7 @@ def main() -> int:
         for line in _build.build_log(kname).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {kname}: {line.strip()}", flush=True)
+    ssd_fwd_traced = trace_ssd_fwd()
     ssd_bwd_traced = trace_ssd_bwd()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2397,7 +2503,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     chunk = min(get_config(TRAIN_SSM_ARCH).mamba.chunk, xabc[0].shape[1])
-    entries.append(check_ssd(xabc, chunk, None))
+    entries.append(check_ssd(xabc, chunk, None, ssd_fwd_traced))
     entries.append(check_ssd_bwd(xabc, chunk, None, ssd_bwd_traced))
     del xabc
     # the float32 yardsticks run in full float32 only while this is False

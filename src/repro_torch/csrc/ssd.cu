@@ -2,15 +2,16 @@
 //
 // The forward replaces the TPU kernel repro/kernels/ssd/ssd.py::ssd_pallas
 // (_ssd_kernel, ssd.py:34-76).  Per (batch, head) the sequence is cut into
-// chunks of Q steps, taken in order, with cum the inclusive cumulative sum
-// of log max(a, 1e-37) inside the chunk and total = cum[Q-1]:
+// chunks of Q steps, with cum the inclusive cumulative sum of
+// log max(a, 1e-37) inside the chunk and total = cum[Q-1]:
 //   y = (C B^T o L) X + (C o exp(cum)) H_prev,
 //       L[i, j] = exp(cum_i - cum_j) for i >= j, else 0 (masked before exp),
 //   H = exp(total) H_prev + (B o exp(total - cum))^T X,
 // with y written in x's dtype and the last H in float32.  Arithmetic is
 // float32 from float32 or bfloat16 inputs, as the Pallas kernel casts.
 // The forward can also write every chunk's starting state H_prev
-// (B, H, S/Q, N, P) float32 for the backward.
+// (B, H, S/Q, N, P) float32 for the backward (its wgmma route always
+// writes them, into a scratch when the caller keeps none).
 //
 // The backward is the port's own (the JAX package differentiates the plain
 // chunked path, repro/kernels/ssd/ops.py::ssd_chunked_ref): from dy and the
@@ -41,43 +42,55 @@
 // once over the live pairs, are 69 GFLOP (0.070 ms at 989 TFLOP/s, 1.03
 // at float32 FMA) against ~0.21 GB moved: operations bound it.
 //
-// The forward, and the backward's "simt" route (float32, and every shape
-// the wgmma route does not take): the first, simple kernels.  One CTA
-// of 256 threads (a 16 x 16 grid) per (batch, head) walks its chunks (128
-// CTAs at the train shape, one wave on 132 SMs), the backward in reverse
-// carrying dH; inputs are widened to float32 in shared-memory tiles and
-// every product is a float32 FMA outside the tensor cores, each thread
+// The "simt" routes (float32, and every shape the wgmma routes do not
+// take): the first, simple kernels, ssd_fwd_kernel and ssd_bwd_kernel.  One
+// CTA of 256 threads (a 16 x 16 grid) per (batch, head) walks its chunks
+// (128 CTAs at the train shape, one wave on 132 SMs), the backward in
+// reverse carrying dH; inputs are widened to float32 in shared-memory tiles
+// and every product is a float32 FMA outside the tensor cores, each thread
 // holding a register block of its output.  Shared memory: B and X of the
 // whole chunk, the state, and C and the masked C B^T in row tiles (RF rows
 // forward, RB backward), about 200 KB; rows of an odd stride (N + 1,
 // P + 1) keep the 16 threads of a row group on 16 distinct banks.  Only
 // the causally live tiles of C B^T are computed.
 //
-// The backward's "wgmma" route (bf16, Q of 64 or 128, N and P multiples of
-// 16; ops.py::_bwd_route): the same algebra, chunk-parallel on the tensor
-// cores.  Its only sequential part is dH, carried across chunks as
-//   dH_end(q - 1) = exp(total_q) dH_end(q) + U_q,  U_q = (C_q o e_q)^T dY_q,
-// so it runs as three launches, each output element written by one CTA
-// (deterministic, no atomics), with one float32 scratch, dH_end
-// (B, H, S/Q, N, P):
-//   A. U_q for every chunk q >= 1, one CTA of two warpgroups per (batch,
-//      head, chunk), into dH_end[q];
-//   B. the carry, in place over dH_end, elementwise over N x P;
-//   C. the outputs, one CTA of Q/64 warpgroups per (batch, head, chunk):
-//      warpgroup w takes rows 64w.. as i (dc, sum_j T_ij, c_i . D_i) and
-//      then as j (dx, db, sum_i T_ij, dw_j), G and dS computed in both
-//      orientations (G = C B^T and G^T = B C^T, 64 x 64 tiles, the tiles
-//      past the diagonal skipped), then the d log a scan.
+// The "wgmma" routes (bf16, Q of 64 or 128, N and P multiples of 16;
+// ops.py::_route): the same algebra, chunk-parallel on the tensor cores.
+// Each has one sequential part, a state carried across the chunks, so each
+// runs as three launches, every output element written by one CTA
+// (deterministic, no atomics), with one float32 buffer (B, H, S/Q, N, P):
+//   A. a product (M o s)^T R a chunk (chunk_state, two warpgroups): the
+//      forward's S_q = (B o w)^T X (ssd_fwd_state_kernel, into chunk
+//      q + 1's slot, the last chunk's into h_last), the backward's U_q =
+//      (C o e)^T dY (ssd_bwd_u_kernel, chunks q >= 1);
+//   B. the carry, in place and elementwise over N x P: forward H_start(q
+//      + 1) = exp(total_q) H_start(q) + S_q from H_start(0) = 0, leaving
+//      every chunk's starting state (the states the backward reads) and
+//      h_last (ssd_fwd_carry_kernel); backward dH_end(q - 1) =
+//      exp(total_q) dH_end(q) + U_q from dh_last (ssd_bwd_carry_kernel);
+//   C. the outputs.  Forward (ssd_fwd_chunk_kernel): one CTA of Q/64
+//      warpgroups per (batch, head, chunk), warpgroup w taking rows 64w..,
+//      y = e o (C H_prev) + the tiles jt <= w of (G o L) X, G = C B^T;
+//      113 KB of shared memory (the cumulative sums in registers), two
+//      CTAs an SM.  Backward (ssd_bwd_chunk_kernel): one CTA of Q/64
+//      warpgroups per (batch, head, chunk): warpgroup w takes rows 64w..
+//      as i (dc, sum_j T_ij, c_i . D_i) and then as j (dx, db, sum_i T_ij,
+//      dw_j), G and dS computed in both orientations (G = C B^T and G^T =
+//      B C^T, 64 x 64 tiles, the tiles past the diagonal skipped), then the
+//      d log a scan.
 // X, dY, B and C are staged with cp.async in 128-byte-swizzled boxes that
 // the wgmma descriptors read (a fence makes the stores visible to the
-// async proxy); a float32 operand enters its product as a bf16 pair
-// hi + lo, two wgmmas: C o e (built in registers), M and G o L (from the
+// async proxy); rows not on 16 bytes are read an element at a time (kVec
+// false).  A float32 operand enters its product as a bf16 pair hi + lo,
+// two wgmmas: B o w and C o e (built in registers), M and G o L (from the
 // accumulators, ``to_a_split``), H_prev and dH (staged as pairs).  Scales
-// by row stay outside the products ((B o w) dH = diag(w) (B dH)); L is
-// masked before its exp.  tools/ssd_rounding.py's CPU emulation of this
-// order reads dx, db, dc 0.48-0.49 of the 2^-8 tolerance and d log a
-// 0.003-0.008 of 2^-12; any one of the five operands rounded once reads
-// 0.82-6.9.  The lines "// PART p1", "// PART p2", "// PART scan" and
+// by row stay outside the products (e o (C H_prev), (B o w) dH =
+// diag(w) (B dH)); L is masked before its exp.  tools/ssd_rounding.py's
+// CPU emulation of these orders reads y 0.477-0.485 of the 2^-8 tolerance,
+// h_last 0.002-0.009 and the states 0.008-0.010 of 2^-12 (any one of B o w,
+// H_prev, G o L rounded once: 0.86-5.3), and dx, db, dc 0.48-0.49 and
+// d log a 0.003-0.008 (any one of the backward's five rounded once:
+// 0.82-6.9).  The lines "// PART p1", "// PART p2", "// PART scan" and
 // "// PART end" in ssd_bwd_chunk_kernel mark its phase 1, phase 2 and
 // d log a scan, each running to the next mark: tools/ssd_bwd_parts.py
 // builds copies with parts between them compiled out, to time each.
@@ -149,11 +162,11 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// One warp: cum[i] = sum_{k <= i} log max(a[k * as], 1e-37) for i < Q
-// (lane l holds steps 4l .. 4l + 3), cum[i] = 0 for Q <= i < QM.
-__device__ __forceinline__ void chunk_cumsum(const float* __restrict__ a,
-                                             long long as, int Q,
-                                             float* __restrict__ cum) {
+// One warp: c[e] = cum[4 lane + e], where cum[i] = sum_{k <= i}
+// log max(a[k * as], 1e-37) for i < Q and cum[i] = 0 for Q <= i < QM.
+__device__ __forceinline__ void chunk_cum(const float* __restrict__ a,
+                                          long long as, int Q,
+                                          float (&c)[4]) {
   const int lane = threadIdx.x & 31;
   float v[4];
   float run = 0.f;
@@ -171,10 +184,28 @@ __device__ __forceinline__ void chunk_cumsum(const float* __restrict__ a,
   }
   const float excl = incl - run;
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int i = lane * 4 + e;
-    cum[i] = i < Q ? excl + v[e] : 0.f;
-  }
+  for (int e = 0; e < 4; ++e) c[e] = lane * 4 + e < Q ? excl + v[e] : 0.f;
+}
+
+// One warp: chunk_cum into shared memory, cum[i] for i < QM.
+__device__ __forceinline__ void chunk_cumsum(const float* __restrict__ a,
+                                             long long as, int Q,
+                                             float* __restrict__ cum) {
+  float c[4];
+  chunk_cum(a, as, Q, c);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) cum[(threadIdx.x & 31) * 4 + e] = c[e];
+}
+
+// cum[i] out of a warp's chunk_cum registers; every lane calls it, i may
+// differ by lane.
+__device__ __forceinline__ float cum_at(const float (&c)[4], int i) {
+  const int src = i >> 2, e = i & 3;
+  const float v0 = __shfl_sync(0xffffffffu, c[0], src);
+  const float v1 = __shfl_sync(0xffffffffu, c[1], src);
+  const float v2 = __shfl_sync(0xffffffffu, c[2], src);
+  const float v3 = __shfl_sync(0xffffffffu, c[3], src);
+  return e == 0 ? v0 : e == 1 ? v1 : e == 2 ? v2 : v3;
 }
 
 // ------------------------------------------------------------------ forward
@@ -878,38 +909,39 @@ __device__ __forceinline__ void staged() {
   __syncthreads();
 }
 
-// Pass A: U_q = (C o e)^T dY of chunk q >= 1 of one (batch, head), N x P
-// float32 into dH_end[q] (pass B turns it into dH_end(q) in place).  Two
-// warpgroups, 64 rows n each; A = (C o e)^T is built in registers as a
-// bf16 pair hi + lo from the staged C, B = dY MN-major.  Four CTAs an SM
+// The N x P product (M o s)^T R of one chunk (pass A of both wgmma routes),
+// float32 into `out()` (row stride P; the pointer is taken only when the
+// product is done, which keeps it out of the registers the product holds):
+// M the chunk's Q x N rows at m (row
+// stride ms), R its Q x P rows at r (row stride rs), a the chunk's decays
+// (stride H), s = exp(cum) (kTail false: the backward's U_q = (C o e)^T dY)
+// or exp(total - cum) (kTail true: the forward's S_q = (B o w)^T X).  Two
+// warpgroups, 64 rows n each; A = (M o s)^T is built in registers as a
+// bf16 pair hi + lo from the staged M, B = R MN-major.  Four CTAs an SM
 // (64 registers): ptxas spills ~100 bytes of the fragments, which costs
 // less than the latency two CTAs an SM leave exposed.
-template <int QT, bool kVec>
-__global__ void __launch_bounds__(2 * kWG, 4)
-ssd_bwd_u_kernel(const __nv_bfloat16* __restrict__ Cm,
-                 const float* __restrict__ A,
-                 const __nv_bfloat16* __restrict__ DY,
-                 float* __restrict__ Dend, int S, int H, int P, int N,
-                 long long cb, long long cs, long long ch, long long yb,
-                 long long ys, long long yh) {
+template <int QT, bool kVec, bool kTail, typename Out>
+__device__ __forceinline__ void chunk_state(const __nv_bfloat16* m,
+                                            long long ms,
+                                            const __nv_bfloat16* r,
+                                            long long rs, const float* a,
+                                            int H, int P, int N, Out out) {
   constexpr int Q = 64 * QT;
   uint8_t* sm = smem_base();
-  uint8_t* sC = sm;                 // 2 boxes of Q rows
-  uint8_t* sDY = sm + 2 * Q * kRow;  // 1 box of Q rows
+  uint8_t* sM = sm;                 // 2 boxes of Q rows
+  uint8_t* sR = sm + 2 * Q * kRow;  // 1 box of Q rows
   float* sCum = reinterpret_cast<float*>(sm + 3 * Q * kRow);  // QM
-  float* sE = sCum + QM;                                       // QM
+  float* sS = sCum + QM;                                       // QM
 
-  const int nq = S / Q;
-  const int h = blockIdx.x % H, t = blockIdx.x / H;
-  const int q = 1 + t % (nq - 1), bi = t / (nq - 1), s0 = q * Q;
   const int tid = threadIdx.x, wg = tid >> 7;
   const int warp = (tid & 127) >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
-  stage<kVec>(sC, Cm + bi * cb + h * ch + s0 * cs, cs, Q, 2, N);
-  stage<kVec>(sDY, DY + bi * yb + h * yh + s0 * ys, ys, Q, 1, P);
-  if (tid < 32) chunk_cumsum(A + ((long long)bi * S + s0) * H + h, H, Q, sCum);
+  stage<kVec>(sM, m, ms, Q, 2, N);
+  stage<kVec>(sR, r, rs, Q, 1, P);
+  if (tid < 32) chunk_cumsum(a, H, Q, sCum);
   __syncthreads();
-  for (int i = tid; i < Q; i += blockDim.x) sE[i] = expf(sCum[i]);
+  for (int i = tid; i < Q; i += blockDim.x)
+    sS[i] = kTail ? expf(sCum[Q - 1] - sCum[i]) : expf(sCum[i]);
   staged();
 
   // A fragments: register j holds rows n and n + 8 (j odd), columns
@@ -920,10 +952,10 @@ ssd_bwd_u_kernel(const __nv_bfloat16* __restrict__ Cm,
   for (int c = 0; c < 4 * QT; ++c)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int r = n + 8 * (j & 1), i = 16 * c + 8 * (j >> 1) + 2 * tq;
-      const uint8_t* box = sC + (r >> 6) * Q * kRow;
-      const float x = sm_bf(box, i, r & 63) * sE[i];
-      const float y = sm_bf(box, i + 1, r & 63) * sE[i + 1];
+      const int rr = n + 8 * (j & 1), i = 16 * c + 8 * (j >> 1) + 2 * tq;
+      const uint8_t* box = sM + (rr >> 6) * Q * kRow;
+      const float x = sm_bf(box, i, rr & 63) * sS[i];
+      const float y = sm_bf(box, i + 1, rr & 63) * sS[i + 1];
       const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
       const float2 f = __bfloat1622float2(hi);
       ah[c][j] = *reinterpret_cast<const uint32_t*>(&hi);
@@ -938,7 +970,7 @@ ssd_bwd_u_kernel(const __nv_bfloat16* __restrict__ Cm,
   wg_fence();
 #pragma unroll
   for (int c = 0; c < 4 * QT; ++c) {
-    const uint64_t bd = sw128_desc(sDY + 16 * c * kRow, Q * kRow, 1024);
+    const uint64_t bd = sw128_desc(sR + 16 * c * kRow, Q * kRow, 1024);
     wgmma_rs_n64(u, ah[c], bd, 1);
     wgmma_rs_n64(u, al[c], bd, 1);
   }
@@ -947,14 +979,60 @@ ssd_bwd_u_kernel(const __nv_bfloat16* __restrict__ Cm,
   hold(u);
   hold(ah);
   hold(al);
-  float* out = Dend + (((long long)bi * H + h) * nq + q) * N * P;
+  float* o = out();
 #pragma unroll
   for (int k = 0; k < 32; k += 2) {
-    const int r = 64 * wg + 16 * warp + g + 8 * ((k >> 1) & 1);
+    const int rr = 64 * wg + 16 * warp + g + 8 * ((k >> 1) & 1);
     const int p = 8 * (k >> 2) + 2 * tq;
-    if (r < N && p < P)
-      *reinterpret_cast<float2*>(out + r * P + p) = make_float2(u[k], u[k + 1]);
+    if (rr < N && p < P)
+      *reinterpret_cast<float2*>(o + rr * P + p) = make_float2(u[k], u[k + 1]);
   }
+}
+
+// Pass A of the backward: U_q = (C o e)^T dY of chunk q >= 1 of one (batch,
+// head), N x P float32 into dH_end[q] (pass B turns it into dH_end(q) in
+// place).
+template <int QT, bool kVec>
+__global__ void __launch_bounds__(2 * kWG, 4)
+ssd_bwd_u_kernel(const __nv_bfloat16* __restrict__ Cm,
+                 const float* __restrict__ A,
+                 const __nv_bfloat16* __restrict__ DY,
+                 float* __restrict__ Dend, int S, int H, int P, int N,
+                 long long cb, long long cs, long long ch, long long yb,
+                 long long ys, long long yh) {
+  constexpr int Q = 64 * QT;
+  const int nq = S / Q;
+  const int h = blockIdx.x % H, t = blockIdx.x / H;
+  const int q = 1 + t % (nq - 1), bi = t / (nq - 1), s0 = q * Q;
+  chunk_state<QT, kVec, false>(
+      Cm + bi * cb + h * ch + s0 * cs, cs, DY + bi * yb + h * yh + s0 * ys,
+      ys, A + ((long long)bi * S + s0) * H + h, H, P, N, [=] {
+        return Dend + (((long long)bi * H + h) * nq + q) * N * P;
+      });
+}
+
+// Pass A of the forward: S_q = (B o w)^T X of chunk q of one (batch, head),
+// N x P float32 into chunk q + 1's slot of the states (the last chunk's
+// into h_last); pass B turns them into the chunk-start states in place.
+template <int QT, bool kVec>
+__global__ void __launch_bounds__(2 * kWG, 4)
+ssd_fwd_state_kernel(const __nv_bfloat16* __restrict__ X,
+                     const float* __restrict__ A,
+                     const __nv_bfloat16* __restrict__ Bm,
+                     float* __restrict__ States, float* __restrict__ Hlast,
+                     int S, int H, int P, int N, long long xb, long long xs,
+                     long long xh, long long bb, long long bs, long long bh) {
+  constexpr int Q = 64 * QT;
+  const int nq = S / Q;
+  const int h = blockIdx.x % H, t = blockIdx.x / H;
+  const int q = t % nq, bi = t / nq, s0 = q * Q;
+  chunk_state<QT, kVec, true>(
+      Bm + bi * bb + h * bh + s0 * bs, bs, X + bi * xb + h * xh + s0 * xs,
+      xs, A + ((long long)bi * S + s0) * H + h, H, P, N, [=] {
+        const long long head = (long long)bi * H + h;
+        return q + 1 < nq ? States + (head * nq + q + 1) * N * P
+                          : Hlast + head * N * P;
+      });
 }
 
 // Pass B: dH_end(q) across the chunks of one (batch, head), in reverse and
@@ -1016,6 +1094,64 @@ ssd_bwd_carry_kernel(float* __restrict__ Dend, const float* __restrict__ A,
 #pragma unroll
     for (int k = 0; k < kCarryDepth; ++k) u[k] = un[k];
   }
+}
+
+// Pass B of the forward: the chunk-start states of one (batch, head), in
+// order and in place over pass A's S_q: H_start(0) = 0, H_start(q + 1) =
+// exp(total_q) H_start(q) + S_q, and h_last = H_start(last + 1), where S_q
+// sits in slot q + 1 (the last chunk's in h_last).  The mirror of
+// ssd_bwd_carry_kernel: the warps take every chunk's exp(total_q) into
+// shared memory first, then each thread carries 4 floats of N x P with
+// the next kCarryDepth chunks' S_q in flight.
+__global__ void __launch_bounds__(kThreads)
+ssd_fwd_carry_kernel(float* __restrict__ States, float* __restrict__ Hlast,
+                     const float* __restrict__ A, int S, int H, int NP,
+                     int Q) {
+  extern __shared__ float sDecay[];  // exp(total_q)
+  __shared__ float sCum[kThreads / 32][QM];
+  const int nq = S / Q, bh = blockIdx.x, bi = bh / H, h = bh % H;
+  const int warp = threadIdx.x >> 5;
+  const int e4 = blockIdx.y * kThreads + threadIdx.x;
+  const bool live = 4 * e4 < NP;
+  float4* col = reinterpret_cast<float4*>(States + (long long)bh * nq * NP) + e4;
+  float4* last = reinterpret_cast<float4*>(Hlast + (long long)bh * NP) + e4;
+  const long long qs = NP / 4;  // float4s from one chunk's state to the next
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // S_q of chunk q < nq
+  auto own = [&](int q) { return q + 1 < nq ? col[(q + 1) * qs] : *last; };
+  float4 u[kCarryDepth];  // the S_q of chunks q0, q0 + 1, ...
+#pragma unroll
+  for (int k = 0; k < kCarryDepth; ++k) u[k] = live && k < nq ? own(k) : zero;
+  const float* ag = A + (long long)bi * S * H + h;
+  for (int q = warp; q < nq; q += kThreads / 32) {
+    chunk_cumsum(ag + (long long)q * Q * H, H, Q, sCum[warp]);
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) sDecay[q] = expf(sCum[warp][Q - 1]);
+    __syncwarp();
+  }
+  __syncthreads();
+  if (!live) return;
+  float4 run = zero;
+  for (int q0 = 0; q0 < nq; q0 += kCarryDepth) {
+    float4 un[kCarryDepth];  // the next batch, in flight during this one
+#pragma unroll
+    for (int k = 0; k < kCarryDepth; ++k) {
+      const int q = q0 + kCarryDepth + k;
+      un[k] = q < nq ? own(q) : zero;
+    }
+#pragma unroll
+    for (int k = 0; k < kCarryDepth; ++k) {
+      const int q = q0 + k;
+      if (q >= nq) break;
+      col[q * qs] = run;
+      const float et = sDecay[q];
+      run = make_float4(fmaf(et, run.x, u[k].x), fmaf(et, run.y, u[k].y),
+                        fmaf(et, run.z, u[k].z), fmaf(et, run.w, u[k].w));
+    }
+#pragma unroll
+    for (int k = 0; k < kCarryDepth; ++k) u[k] = un[k];
+  }
+  *last = run;
 }
 
 template <int QT>
@@ -1406,6 +1542,192 @@ ssd_bwd_chunk_kernel(const __nv_bfloat16* __restrict__ X,
   // PART end
 }
 
+// Pass C of the forward: the outputs y of chunk q of one (batch, head),
+// one CTA of Q/64 warpgroups, warpgroup w taking rows 64w .. 64w + 63, from
+// H_prev = the chunk's start state (pass B):
+//   y = e o (C H_prev) + sum over column tiles jt <= w of (G o L) X,
+// G = C B^T in 64 x 64 tiles, the tiles past the diagonal skipped.  X, B
+// and C are staged as bf16 boxes, H_prev as a bf16 pair hi + lo; G o L
+// enters as a pair from the accumulators (``to_a_split``); e scales the
+// rows outside the product.  The cumulative sums stay in each warp's
+// registers (chunk_cum, cum_at), so that two CTAs fit an SM's shared
+// memory at Q = 128.
+template <int QT>
+struct FwdTiles {
+  static constexpr int Q = 64 * QT;
+  static constexpr int X = 0;                  // X: 1 box of Q rows
+  static constexpr int B = Q * kRow;           // B: 2 boxes
+  static constexpr int C = 3 * Q * kRow;       // C: 2 boxes
+  static constexpr int HPH = 5 * Q * kRow;     // H_prev hi, N x P
+  static constexpr int HPL = HPH + kStateBox;  // H_prev lo
+  static constexpr int SMEM = HPL + kStateBox + 1024;
+};
+
+template <int QT, bool kVec>
+__global__ void __launch_bounds__(QT * kWG, 2)
+ssd_fwd_chunk_kernel(const __nv_bfloat16* __restrict__ X,
+                     const float* __restrict__ A,
+                     const __nv_bfloat16* __restrict__ Bm,
+                     const __nv_bfloat16* __restrict__ Cm,
+                     const float* __restrict__ States,
+                     __nv_bfloat16* __restrict__ Y, int S, int H, int P,
+                     int N, long long xb, long long xs, long long xh,
+                     long long bb, long long bs, long long bh, long long cb,
+                     long long cs, long long ch) {
+  using T = FwdTiles<QT>;
+  constexpr int Q = T::Q;
+  const int nq = S / Q;
+  const int h = blockIdx.x % H, t = blockIdx.x / H;
+  const int q = t % nq, bi = t / nq, s0 = q * Q;
+  uint8_t* sm = smem_base();
+  const int tid = threadIdx.x, wg = tid >> 7, i0 = 64 * wg;
+  const int warp = (tid & 127) >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int rl = 16 * warp + g;  // the thread's rows rl and rl + 8 of a tile
+  stage<kVec>(sm + T::X, X + bi * xb + h * xh + s0 * xs, xs, Q, 1, P);
+  stage<kVec>(sm + T::B, Bm + bi * bb + h * bh + s0 * bs, bs, Q, 2, N);
+  stage<kVec>(sm + T::C, Cm + bi * cb + h * ch + s0 * cs, cs, Q, 2, N);
+  {  // H_prev as a bf16 pair, N x P padded to NM x PM
+    const float* st = States + (((long long)bi * H + h) * nq + q) * N * P;
+    constexpr int kF = NM * PM / 4 / (QT * kWG);  // float4s a thread, all
+    float4 ss[kF];                                // in flight
+#pragma unroll
+    for (int k = 0; k < kF; ++k) {
+      const int f = tid + k * QT * kWG;
+      const int r = f / (PM / 4), p = 4 * (f % (PM / 4));
+      ss[k] = r < N && p < P
+                  ? *reinterpret_cast<const float4*>(st + r * P + p)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < kF; ++k) {
+      const int f = tid + k * QT * kWG;
+      const int o = sw(f / (PM / 4), 4 * (f % (PM / 4)));
+      store_pair(sm + T::HPH + o, sm + T::HPL + o, ss[k]);
+    }
+  }
+  float cum[4];  // every warp its own copy of the chunk's cumulative sums
+  chunk_cum(A + ((long long)bi * S + s0) * H + h, H, Q, cum);
+  const float ci[2] = {cum_at(cum, i0 + rl), cum_at(cum, i0 + rl + 8)};
+  staged();
+
+  float y[32];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) y[k] = 0.f;
+  for (int jt = 0; jt <= wg; ++jt) {
+    float gm[32];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) gm[k] = 0.f;
+    hold(y);
+    hold(gm);
+    wg_fence();
+    if (jt == 0) {  // C H_prev, sharing a wait with the first tile of G
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint64_t ad = sw128_desc(
+            sm + T::C + (kk >> 2) * Q * kRow + i0 * kRow + 32 * (kk & 3), 16,
+            1024);
+        wgmma_ss_n64_tb(y, ad, sw128_desc(sm + T::HPH + 16 * kk * kRow,
+                                          kStateBox, 1024), kk > 0);
+        wgmma_ss_n64_tb(y, ad, sw128_desc(sm + T::HPL + 16 * kk * kRow,
+                                          kStateBox, 1024), 1);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int box = (kk >> 2) * Q * kRow, col = 32 * (kk & 3);
+      wgmma_ss_n64(gm, sw128_desc(sm + T::C + box + i0 * kRow + col, 16, 1024),
+                   sw128_desc(sm + T::B + box + 64 * jt * kRow + col, 16,
+                              1024), kk > 0);
+    }
+    wg_commit();
+    wg_wait_all();
+    hold(y);
+    hold(gm);
+    if (jt == 0) {  // the rows' e = exp(cum_i), outside the product
+      const float e0 = expf(ci[0]), e1 = expf(ci[1]);
+#pragma unroll
+      for (int k = 0; k < 32; ++k) y[k] *= (k >> 1) & 1 ? e1 : e0;
+    }
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {  // G o L
+      const int r = (k >> 1) & 1, i = i0 + rl + 8 * r;
+      const int j = 64 * jt + 8 * (k >> 2) + 2 * tq + (k & 1);
+      const float cj = cum_at(cum, j);
+      gm[k] *= i >= j ? expf(ci[r] - cj) : 0.f;
+    }
+    uint32_t gh[4][4], gl[4][4];
+    to_a_split<4>(gm, gh, gl);
+    hold(y);
+    hold(gh);
+    hold(gl);
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint64_t bx = sw128_desc(sm + T::X + (64 * jt + 16 * c) * kRow,
+                                     Q * kRow, 1024);
+      wgmma_rs_n64(y, gh[c], bx, 1);
+      wgmma_rs_n64(y, gl[c], bx, 1);
+    }
+    wg_commit();
+    wg_wait_all();
+    hold(y);
+    hold(gh);
+    hold(gl);
+  }
+  __nv_bfloat16* yg = Y + ((long long)bi * S + s0 + i0) * H * P +
+                      (long long)h * P;
+#pragma unroll
+  for (int k = 0; k < 32; k += 2) {
+    const int i = rl + 8 * ((k >> 1) & 1);
+    const int p = 8 * (k >> 2) + 2 * tq;
+    if (p < P)
+      *reinterpret_cast<__nv_bfloat162*>(yg + (long long)i * H * P + p) =
+          __floats2bfloat162_rn(y[k], y[k + 1]);
+  }
+}
+
+template <int QT, bool kVec>
+int fwd_wgmma(const void* x, const float* a, const void* b, const void* c,
+              void* y, float* hlast, float* states, int B, int S, int H,
+              int P, int N, long long xb, long long xs, long long xh,
+              long long bb, long long bs, long long bh, long long cb,
+              long long cs, long long ch, cudaStream_t stream) {
+  using Bf = __nv_bfloat16;
+  constexpr int Q = 64 * QT;
+  const int nq = S / Q;
+  constexpr int smem_a = 3 * Q * kRow + 2 * QM * 4 + 1024;
+  cudaError_t e = cudaFuncSetAttribute(
+      ssd_fwd_state_kernel<QT, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_a);
+  if (e != cudaSuccess) return (int)e;
+  ssd_fwd_state_kernel<QT, kVec><<<B * H * nq, 2 * kWG, smem_a, stream>>>(
+      (const Bf*)x, a, (const Bf*)b, states, hlast, S, H, P, N, xb, xs, xh,
+      bb, bs, bh);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int np4 = N * P / 4;
+  const int decay_smem = nq * (int)sizeof(float);
+  e = cudaFuncSetAttribute(ssd_fwd_carry_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           decay_smem);
+  if (e != cudaSuccess) return (int)e;
+  ssd_fwd_carry_kernel<<<dim3(B * H, (np4 + kThreads - 1) / kThreads),
+                         kThreads, decay_smem, stream>>>(states, hlast, a, S,
+                                                         H, N * P, Q);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(ssd_fwd_chunk_kernel<QT, kVec>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           FwdTiles<QT>::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  ssd_fwd_chunk_kernel<QT, kVec><<<B * H * nq, QT * kWG, FwdTiles<QT>::SMEM,
+                                   stream>>>(
+      (const Bf*)x, a, (const Bf*)b, (const Bf*)c, states, (Bf*)y, S, H, P,
+      N, xb, xs, xh, bb, bs, bh, cb, cs, ch);
+  return (int)cudaGetLastError();
+}
+
 template <int QT, bool kVec>
 int bwd_wgmma(const void* x, const float* a, const void* b, const void* c,
               const float* states, const void* dy, const float* dhlast,
@@ -1453,6 +1775,12 @@ int bwd_wgmma(const void* x, const float* a, const void* b, const void* c,
 }
 
 static_assert(BwdTiles<2>::SMEM <= 232448, "wgmma tiles exceed shared memory");
+// two CTAs an SM: 228 KB of shared memory, 1 KB of it reserved a CTA
+static_assert(2 * (FwdTiles<2>::SMEM + 1024) <= 233472,
+              "the forward's outputs tiles exceed half an SM");
+
+// Whether p allows 16-byte copies (cp.async).
+bool al16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
@@ -1477,6 +1805,30 @@ extern "C" int ssd_fwd_launch(const void* x, const float* a, const void* b,
                               Q, xb, xs, xh, bb, bs, bh, cb, cs, ch, st);
   return fwd<float>(x, a, b, c, y, hlast, states, B, S, H, P, N, Q, xb, xs,
                     xh, bb, bs, bh, cb, cs, ch, st);
+}
+
+// The forward's wgmma route, for bfloat16 x, b, c with a chunk Q of 64 or
+// 128 and N, P multiples of 16 (up to 128 and 64), with the arguments of
+// ssd_fwd_launch; states may not be null: the route writes every chunk's
+// starting state there (scratch when the caller keeps none).  Three
+// launches on the stream (passes A, B, C).  Returns the first cudaError_t.
+extern "C" int ssd_fwd_wgmma_launch(
+    const void* x, const float* a, const void* b, const void* c, void* y,
+    float* hlast, float* states, int B, int S, int H, int P, int N, int Q,
+    long long xb, long long xs, long long xh, long long bb, long long bs,
+    long long bh, long long cb, long long cs, long long ch, void* stream) {
+  if ((Q != 64 && Q != 128) || N < 16 || N > NM || N % 16 || P < 16 ||
+      P > PM || P % 16 || S % Q || states == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool vec = al16(x) && al16(b) && al16(c) &&
+                   (xb | xs | xh | bb | bs | bh | cb | cs | ch) % 8 == 0;
+#define SSD_FWD_WGMMA(QT, V)                                                 \
+  fwd_wgmma<QT, V>(x, a, b, c, y, hlast, states, B, S, H, P, N, xb, xs, xh, \
+                   bb, bs, bh, cb, cs, ch, st)
+  if (Q == 128) return vec ? SSD_FWD_WGMMA(2, true) : SSD_FWD_WGMMA(2, false);
+  return vec ? SSD_FWD_WGMMA(1, true) : SSD_FWD_WGMMA(1, false);
+#undef SSD_FWD_WGMMA
 }
 
 // The backward: the forward's inputs and chunk-start states, dy (strided
@@ -1521,7 +1873,6 @@ extern "C" int ssd_bwd_wgmma_launch(
       P > PM || P % 16 || S % Q)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  auto al16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
   const bool vec = al16(x) && al16(b) && al16(c) && al16(dy) &&
                    (xb | xs | xh | bb | bs | bh | cb | cs | ch | yb | ys |
                     yh) % 8 == 0;

@@ -3,13 +3,15 @@ chunked Mamba2 scan, with a hand-written backward.
 
 A tensor on the CPU goes to the plain version in ``ref.py``
 (``ssd_chunked_ref``), differentiated by autograd.  A CUDA tensor launches
-``csrc/ssd.cu`` through ``SSDScan`` (the forward kernel, and a backward
+``csrc/ssd.cu`` through ``SSDScan`` (a forward kernel, and a backward
 kernel in autograd's backward pass) or raises: a shape its tiles cannot
 take raises, and there is no gate that quietly runs the plain version.
-The backward has two routes, chosen by ``_bwd_route`` from the dtype and
-shape alone: "wgmma" (bf16, chunk 64 or 128, N and P multiples of 16:
-three chunk-parallel launches on the tensor cores) and "simt" (the rest:
-one float32 kernel a (batch, head) that walks the chunks in reverse).
+Forward and backward each have two routes, chosen by ``_fwd_route`` and
+``_bwd_route`` from the dtype and shape alone by one rule (``_route``):
+"wgmma" (bf16, chunk 64 or 128, N and P multiples of 16: three
+chunk-parallel launches on the tensor cores) and "simt" (the rest: one
+float32 kernel a (batch, head) that walks the chunks, in reverse for the
+backward).
 
 b and c may be read through a head stride of 0: ``models/mamba.py``
 broadcasts one B and one C over all heads with ``expand``, and the kernel
@@ -34,6 +36,10 @@ MAX_P = 64
 #: checkpointed layer's forward runs again in the backward and counts
 #: again); plain-version calls on CPU tensors do not count
 launches = 0
+#: the same count by route (``_fwd_route``): each launch adds one to its
+#: route's count and to ``launches``
+wgmma_fwd_launches = 0
+simt_fwd_launches = 0
 #: launches of the backward kernel since the count was last set to 0
 bwd_launches = 0
 #: the same count by route (``_bwd_route``): each launch adds one to its
@@ -56,6 +62,13 @@ def _fwd_lib():
     return fn
 
 
+def _fwd_wgmma_lib():
+    fn = _build.load("ssd").ssd_fwd_wgmma_launch
+    fn.argtypes = [_F] * 7 + [_I] * 6 + [_L] * 9 + [_F]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _bwd_lib():
     fn = _build.load("ssd").ssd_bwd_launch
     fn.argtypes = [_F] * 11 + [_I] * 6 + [_L] * 12 + [_I, _F]
@@ -70,14 +83,19 @@ def _bwd_wgmma_lib():
     return fn
 
 
-def _bwd_route(dtype: torch.dtype, chunk: int, n: int, p: int) -> str:
-    """The backward kernel for a dtype and shape: "wgmma" (the tensor-core
-    route of ``csrc/ssd.cu``: bf16, 64-row chunk tiles, N and P in steps of
-    16) or "simt" (float32 products, every shape ``_check`` allows)."""
+def _route(dtype: torch.dtype, chunk: int, n: int, p: int) -> str:
+    """The kernels for a dtype and shape, forward and backward alike:
+    "wgmma" (the tensor-core routes of ``csrc/ssd.cu``: bf16, 64-row chunk
+    tiles, N and P in steps of 16) or "simt" (float32 products, every shape
+    ``_check`` allows)."""
     if dtype == torch.bfloat16 and chunk % 64 == 0 and n % 16 == 0 \
             and p % 16 == 0:
         return "wgmma"
     return "simt"
+
+
+#: the forward's route and the backward's: one rule (``_route``)
+_fwd_route = _bwd_route = _route
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -136,26 +154,46 @@ def ssd_forward(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     float32, and with ``keep_states`` every chunk's starting state
     (B, H, S/chunk, N, P) float32 for the backward, else None)."""
     _check(x, a, b, c, chunk)
+    return _launch_forward(_fwd_route(x.dtype, chunk, b.shape[-1],
+                                      x.shape[-1]),
+                           x, a, b, c, chunk, keep_states)
+
+
+def _launch_forward(route: str, x, a, b, c, chunk: int, keep_states: bool):
+    """``ssd_forward``'s launch on a route, for checked arguments
+    (``chip_smoke.py`` and ``tools/ssd_kernel_times.py`` run both routes
+    on the same inputs)."""
     bsz, s, h, p = x.shape
     n = b.shape[-1]
     x, b, c, a = _rows(x), _rows(b), _rows(c), a.contiguous()
     y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
     h_last = torch.empty((bsz, h, n, p), dtype=torch.float32,
                          device=x.device)
+    # the wgmma route writes every chunk's starting state (its pass B's
+    # carry), into a scratch when the caller keeps none
     states = (torch.empty((bsz, h, s // chunk, n, p), dtype=torch.float32,
-                          device=x.device) if keep_states else None)
-    fn = _fwd_lib()
+                          device=x.device)
+              if keep_states or route == "wgmma" else None)
+    ptrs = (x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            y.data_ptr(), h_last.data_ptr(),
+            None if states is None else states.data_ptr())
+    strides = (*_strides(x), *_strides(b), *_strides(c))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.check(fn(x.data_ptr(), a.data_ptr(), b.data_ptr(),
-                        c.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-                        None if states is None else states.data_ptr(),
-                        bsz, s, h, p, n, chunk, *_strides(x), *_strides(b),
-                        *_strides(c), int(x.dtype == torch.bfloat16), stream),
-                     "ssd forward")
-    global launches
+        if route == "wgmma":
+            code = _fwd_wgmma_lib()(*ptrs, bsz, s, h, p, n, chunk, *strides,
+                                    stream)
+        else:
+            code = _fwd_lib()(*ptrs, bsz, s, h, p, n, chunk, *strides,
+                              int(x.dtype == torch.bfloat16), stream)
+        _build.check(code, f"ssd forward ({route})")
+    global launches, wgmma_fwd_launches, simt_fwd_launches
     launches += 1
-    return y, h_last, states
+    if route == "wgmma":
+        wgmma_fwd_launches += 1
+    else:
+        simt_fwd_launches += 1
+    return y, h_last, states if keep_states else None
 
 
 def ssd_backward(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,

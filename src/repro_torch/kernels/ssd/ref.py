@@ -123,6 +123,60 @@ def _exact(name: str, t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """(B, H, S/chunk, chunk, K) as (B, S, H, K)."""
+    bsz, h, nq, q, k = t.shape
+    return t.permute(0, 2, 3, 1, 4).reshape(bsz, nq * q, h, k)
+
+
+def ssd_forward_ref(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                    c: torch.Tensor, chunk: int, operand=_exact
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The chunk-parallel forward of ``ssd_chunked_ref``, in the order of
+    the wgmma route of ``csrc/ssd.cu``, in float32: (y in x's dtype,
+    h_last (B, H, N, P), every chunk's starting state (B, H, S/chunk, N,
+    P)).  It is the oracle of that design (three passes), as
+    ``ssd_backward_ref`` is of the backward's.
+
+    A: per chunk q, S_q = (B o w)^T X with w = exp(total - cum).
+    B: across chunks, H_start(0) = 0 and H_start(q+1) = exp(total_q)
+       H_start(q) + S_q; h_last = H_start(last + 1).
+    C: per chunk, from H_prev = H_start(q), with G = C B^T and
+       L[i, j] = exp(cum_i - cum_j) (i >= j, masked before the exp):
+         y = e o (C H_prev) + (G o L) X,  e = exp(cum).
+
+    ``operand(name, t)`` gives the float32 operand ``t`` of a product as
+    the tensor cores see it (``tools/ssd_rounding.py``); the names are
+    "Bw" (B o w in S_q), "Hp" (H_prev in y) and "GL" (G o L in y).  The
+    default keeps them exact."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    nq = s // chunk
+    xq, bq, cq = (_chunked(t, chunk) for t in (x, b, c))
+    cum = _chunk_cum(a, chunk)                         # (B, H, nq, Q)
+    total = cum[..., -1]
+    w = torch.exp(total[..., None] - cum)
+    # A: S_q, chunk-parallel
+    own = torch.einsum("bhqin,bhqip->bhqnp", operand("Bw", bq * w[..., None]),
+                       xq)
+    # B: the chunk-start states across chunks
+    run = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    hs = []
+    for q in range(nq):
+        hs.append(run)
+        run = torch.exp(total[:, :, q])[..., None, None] * run + own[:, :, q]
+    states = torch.stack(hs, dim=2)                    # (B, H, nq, N, P)
+    # C: the outputs, chunk-parallel
+    idx = torch.arange(chunk, device=x.device)
+    live = idx[:, None] >= idx[None, :]
+    lmat = torch.exp(torch.where(live, cum[..., :, None] - cum[..., None, :],
+                                 -torch.inf))
+    g = cq @ bq.transpose(-1, -2)
+    y = torch.exp(cum)[..., None] * (cq @ operand("Hp", states)) + \
+        operand("GL", g * lmat) @ xq
+    return _rows(y).to(x.dtype), run, states
+
+
 def ssd_backward_ref(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                      c: torch.Tensor, states: torch.Tensor, dy: torch.Tensor,
                      dh_last: Optional[torch.Tensor], chunk: int,
@@ -196,10 +250,7 @@ def ssd_backward_ref(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     dloga = dloga.permute(0, 2, 3, 1).reshape(bsz, s, h)
     da = torch.where(af > 1e-37, dloga / af, torch.zeros_like(af))
 
-    def rows(t):  # (B, H, nq, Q, K) -> (B, S, H, K)
-        return t.permute(0, 2, 3, 1, 4).reshape(bsz, s, h, t.shape[-1])
-
-    return rows(dx), da, rows(db), rows(dc)
+    return _rows(dx), da, _rows(db), _rows(dc)
 
 
 def row_excess(got: torch.Tensor, want: torch.Tensor, row_dims: int = 1,

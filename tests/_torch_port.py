@@ -1,9 +1,18 @@
 """Shared helpers of the port's tests: carry reference state (a sampler, a
 catalog version, a spectral form, a pool of MCMC chains) across to
-``repro_torch`` as numpy, and pin the key layout of the golden files."""
-import contextlib
+``repro_torch`` as numpy, and pin the key layout of the golden files.
 
-import jax
+Importing it caps torch's CPU threads at this process's share of the
+cores (the cores over ``PYTEST_XDIST_WORKER_COUNT``, at least 1): under
+pytest-xdist every worker would otherwise start a thread per core, and
+the workers' threads contend (one catalog draw: 6.3 s alone, 15 s each
+with six at once at one thread, over 900 s each with six at once at
+eight).  Every ``test_torch_*.py`` imports it.  It imports JAX only where
+a helper needs it, so that the card's tests, on a machine without JAX,
+can import it too."""
+import contextlib
+import os
+
 import numpy as np
 import torch
 
@@ -13,6 +22,9 @@ from repro_torch.convert import (
     sampler_from_numpy,
 )
 from repro_torch.core.types import SpectralNDPP
+
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 
 def port_sampler(sampler, device="cpu"):
@@ -29,6 +41,8 @@ def golden_key_layout():
     """The threefry layout the reference's golden files were written in
     (``jax_threefry_partitionable=False``), scoped to the block so other
     test files in the same worker keep JAX's default."""
+    import jax
+
     with jax.threefry_partitionable(False):
         yield
 

@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_port  # noqa: F401  (caps torch's CPU threads)
+
 from repro.kernels.attention import ops as raops
 from repro.kernels.attention.ref import mha_ref as r_mha_ref
 from repro.models.layers import chunked_causal_attention as r_chunked

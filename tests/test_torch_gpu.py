@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_port  # noqa: F401  (caps torch's CPU threads)
+
 from repro_torch import random as trandom
 from repro_torch.core import (
     SpectralNDPP,
@@ -653,15 +655,20 @@ _SSD_CASES = [  # (B, S, H, P, N, chunk, smallest decay, B and C shared)
 
 
 def _ssd_route(dtype, p, n, chunk):
-    """The backward's route, as ``ssd/ops.py::_bwd_route`` must choose it:
-    the tensor cores for bf16 at chunk 64 or 128 with N and P multiples of
-    16, the float32 SIMT kernel for everything else."""
+    """The forward's and the backward's route, as ``ssd/ops.py::_fwd_route``
+    and ``_bwd_route`` must choose them: the tensor cores for bf16 at chunk
+    64 or 128 with N and P multiples of 16, the float32 SIMT kernels for
+    everything else."""
     return ("wgmma" if dtype == torch.bfloat16 and chunk in (64, 128)
             and n % 16 == 0 and p % 16 == 0 else "simt")
 
 
 def _bwd_counts(ssd_ops):
     return ssd_ops.wgmma_bwd_launches, ssd_ops.simt_bwd_launches
+
+
+def _fwd_counts(ssd_ops):
+    return ssd_ops.wgmma_fwd_launches, ssd_ops.simt_fwd_launches
 
 
 def _ssd_inputs(cuda, b, s, h, p, n, lo, shared, dtype, seed):
@@ -713,14 +720,14 @@ def test_ssd_kernel(cuda, b, s, h, p, n, chunk, lo, shared, dtype):
     |value| + 2^-12 of its row's max in float32 (sums in another order,
     cum rounded differently), 2^-8 (one bfloat16 rounding) in bfloat16.
     da is compared as d log a = da * a.  One forward and one backward
-    launch each, the backward on the route ``_ssd_route`` names (h_last's
+    launch each, both on the route ``_ssd_route`` names (h_last's
     gradient nonzero on both)."""
     from repro_torch.kernels.ssd import ops as ssd_ops
 
     x, a, bb, cc, dy, dh = _ssd_inputs(cuda, b, s, h, p, n, lo, shared,
                                        dtype, seed=s + 7 * n + p)
     f0, b0 = ssd_ops.launches, ssd_ops.bwd_launches
-    r0 = _bwd_counts(ssd_ops)
+    r0, fr0 = _bwd_counts(ssd_ops), _fwd_counts(ssd_ops)
     xs = [t.detach().requires_grad_(True) for t in (x, a)]
     # gradients of b and c taken at the expanded views: a head at a time
     bl = (bb[:, :, :1] if shared else bb).detach().requires_grad_(True)
@@ -732,7 +739,10 @@ def test_ssd_kernel(cuda, b, s, h, p, n, chunk, lo, shared, dtype):
     assert (ssd_ops.launches, ssd_ops.bwd_launches) == (f0 + 1, b0 + 1)
     route = _ssd_route(dtype, p, n, chunk)
     assert ssd_ops._bwd_route(dtype, chunk, n, p) == route
+    assert ssd_ops._fwd_route(dtype, chunk, n, p) == route
     assert tuple(c - c0 for c, c0 in zip(_bwd_counts(ssd_ops), r0)) == (
+        (1, 0) if route == "wgmma" else (0, 1))
+    assert tuple(c - c0 for c, c0 in zip(_fwd_counts(ssd_ops), fr0)) == (
         (1, 0) if route == "wgmma" else (0, 1))
     assert y.dtype == dx.dtype == db.dtype == dc.dtype == dtype
     assert hl.dtype == da.dtype == torch.float32
@@ -747,15 +757,15 @@ def test_ssd_row_tolerance_rejects_planted_faults(cuda, dtype):
     """At the train path's widths (P 64, N 128, chunk 128, B and C shared)
     the kernels pass ``row_excess`` while two planted faults fail it: the
     state not carried across one chunk boundary (the sequence run in two
-    halves) and the decays of the wrong head; the backward on the wgmma
-    route in bf16, on the simt route in float32."""
+    halves) and the decays of the wrong head; forward and backward on the
+    wgmma routes in bf16, on the simt routes in float32."""
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import row_excess
 
     b, s, h, p, n, q = 2, 1024, 8, 64, 128, 128
     x, a, bb, cc, dy, _ = _ssd_inputs(cuda, b, s, h, p, n, 1e-3, True,
                                       dtype, seed=5)
-    r0 = _bwd_counts(ssd_ops)
+    r0, fr0 = _bwd_counts(ssd_ops), _fwd_counts(ssd_ops)
     (wy, _), (wx, *_) = _ssd_want(x, a, bb, cc, dy, torch.zeros(
         b, h, n, p, device=cuda), q)
 
@@ -776,6 +786,68 @@ def test_ssd_row_tolerance_rejects_planted_faults(cuda, dtype):
     wgmma = _ssd_route(dtype, p, n, q) == "wgmma"
     assert tuple(c - c0 for c, c0 in zip(_bwd_counts(ssd_ops), r0)) == (
         (4, 0) if wgmma else (0, 4))
+    assert tuple(c - c0 for c, c0 in zip(_fwd_counts(ssd_ops), fr0)) == (
+        (4, 0) if wgmma else (0, 4))
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_ssd_fwd_wgmma_is_deterministic(cuda, shared):
+    """The forward's wgmma route writes every output element from one CTA,
+    with no atomics: two calls on the same inputs are equal bit for bit,
+    with the states kept and not (y and h_last the same either way); its
+    chunk-start states lie within 2^-12 (``row_excess``, a row a state)
+    of the simt route's on the same inputs, and y and h_last within 2^-8
+    of the plain version in float32."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import row_excess
+
+    b, s, h, p, n, q = 2, 512, 4, 64, 128, 128
+    x, a, bb, cc, dy, dh = _ssd_inputs(cuda, b, s, h, p, n, 1e-3, shared,
+                                       torch.bfloat16, seed=9)
+    fr0 = _fwd_counts(ssd_ops)
+    runs = {keep: [ssd_ops.ssd_forward(x, a, bb, cc, q, keep_states=keep)
+                   for _ in range(2)] for keep in (True, False)}
+    simt = ssd_ops._launch_forward("simt", x, a, bb, cc, q, True)
+    torch.cuda.synchronize()
+    assert tuple(c - c0 for c, c0 in zip(_fwd_counts(ssd_ops), fr0)) == (4, 1)
+    for keep, (one, two) in runs.items():
+        assert all(torch.equal(u, v) for u, v in zip(one[:2], two[:2])), keep
+    assert torch.equal(runs[True][0][2], runs[True][1][2])
+    assert runs[False][0][2] is None
+    assert all(torch.equal(u, v) for u, v in zip(runs[True][0][:2],
+                                                 runs[False][0][:2]))
+    assert row_excess(runs[True][0][2], simt[2], 2, 2.0 ** -12) <= 1
+    want = _ssd_want(x, a, bb, cc, dy, dh, q)
+    y, hl, _ = runs[True][0]
+    excess = _ssd_excess((y, hl, *ssd_ops.ssd_backward(
+        x, a, bb, cc, runs[True][0][2], dy, dh, q)), want, a, q, 2.0 ** -8)
+    assert max(excess.values()) <= 1, excess
+
+
+def test_ssd_fwd_wgmma_reads_unaligned_rows(cuda):
+    """Rows that do not start on 16 bytes (views one column into wider
+    tensors) take the forward's wgmma route's element-at-a-time staging
+    and give the same bits as 16-byte-aligned copies of the same values."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    b, s, h, p, n, q = 1, 256, 2, 32, 48, 64
+    x, a, bb, cc, _, _ = _ssd_inputs(cuda, b, s, h, p, n, 0.5, False,
+                                     torch.bfloat16, seed=11)
+
+    def shifted(t):  # the same values one column into a wider tensor
+        wide = torch.zeros(*t.shape[:-1], t.shape[-1] + 1, dtype=t.dtype,
+                           device=cuda)
+        wide[..., 1:] = t
+        return wide[..., 1:]
+
+    fr0 = _fwd_counts(ssd_ops)
+    want = ssd_ops.ssd_forward(x, a, bb, cc, q, keep_states=True)
+    got = ssd_ops.ssd_forward(shifted(x), a, shifted(bb), shifted(cc), q,
+                              keep_states=True)
+    torch.cuda.synchronize()
+    assert shifted(x).data_ptr() % 16 != 0
+    assert tuple(c - c0 for c, c0 in zip(_fwd_counts(ssd_ops), fr0)) == (2, 0)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
 
 
 @pytest.mark.parametrize("shared", [True, False])

@@ -9,6 +9,9 @@ import sys
 
 import pytest
 
+import _torch_port  # noqa: F401  (caps torch's CPU threads)
+
+
 PKG = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_port  # noqa: F401  (caps torch's CPU threads)
+
 from repro.kernels.spec_round.ref import descend_score_ref as jax_descend_score
 from repro.kernels.tree_sum import ops as jax_tree_sum
 from repro.kernels.tree_sum.ref import block_outer_sums_ref as jax_outer_sums

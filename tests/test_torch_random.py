@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_port  # noqa: F401  (caps torch's CPU threads)
+
 from repro_torch import random as trandom
 
 

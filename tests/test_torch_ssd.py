@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_port  # noqa: F401  (caps torch's CPU threads)
+
 from repro.configs import get_smoke_config as r_smoke
 from repro.kernels.ssd import ops as rsops
 from repro.kernels.ssd.ref import ssd_ref as r_ssd_ref
@@ -30,7 +32,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.ssd import ops as tsops
 from repro_torch.kernels.ssd.ref import (chunk_states, da_rows, row_excess,
                                          ssd_backward_ref, ssd_chunked_ref,
-                                         ssd_ref)
+                                         ssd_forward_ref, ssd_ref)
 from repro_torch.models import mamba as t_mamba
 
 CASES = [(2, 64, 2, 16, 8, 16, 0.7), (1, 128, 4, 32, 16, 32, 0.7),
@@ -73,6 +75,25 @@ def test_plain_ssd_matches_reference(b, s, h, p, n, chunk, lo):
         assert _excess(hl, want_h, 2) <= 1
     ry, rh = r_ssd_ref(*j)
     assert _excess(ty, ry) <= 1 and _excess(th, rh, 2) <= 1
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,lo", CASES)
+def test_chunk_parallel_forward_matches_reference(b, s, h, p, n, chunk, lo):
+    """``ssd_forward_ref`` (the three passes of the forward's wgmma route:
+    S_q a chunk, the carry of the states across chunks, y a chunk) against
+    the reference's chunked scan and its Pallas kernel in interpret mode;
+    its chunk-start states against ``chunk_states``."""
+    arrs = _inputs(b, s, h, p, n, lo)
+    j = [jnp.asarray(a) for a in arrs]
+    y, hl, states = ssd_forward_ref(*_t(arrs), chunk)
+    assert y.dtype == torch.float32 and hl.dtype == states.dtype
+    assert tuple(states.shape) == (b, h, s // chunk, n, p)
+    assert torch.isfinite(y).all() and torch.isfinite(states).all()
+    for want_y, want_h in (rsops.ssd_chunked_ref(*j, chunk=chunk),
+                           rsops.ssd(*j, chunk=chunk, force_interpret=True)):
+        assert _excess(y, want_y) <= 1
+        assert _excess(hl, want_h, 2) <= 1
+    assert row_excess(states, chunk_states(*_t(arrs), chunk), 2, REL) <= 1
 
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk,lo", CASES)
@@ -204,6 +225,22 @@ def test_backward_route_by_dtype_and_shape(dtype, chunk, n, p, route):
     tensor cores for bf16 at chunk 64 or 128 with N and P multiples of
     16, the float32 SIMT kernel for the rest."""
     assert tsops._bwd_route(dtype, chunk, n, p) == route
+
+
+@pytest.mark.parametrize("dtype,chunk,n,p,route", [
+    (torch.bfloat16, 128, 128, 64, "wgmma"), (torch.bfloat16, 64, 48, 32,
+                                               "wgmma"),
+    (torch.bfloat16, 64, 16, 16, "wgmma"), (torch.float32, 128, 128, 64,
+                                             "simt"),
+    (torch.bfloat16, 32, 128, 64, "simt"), (torch.bfloat16, 40, 128, 64,
+                                             "simt"),
+    (torch.bfloat16, 128, 20, 64, "simt"), (torch.bfloat16, 128, 128, 24,
+                                             "simt")])
+def test_forward_route_by_dtype_and_shape(dtype, chunk, n, p, route):
+    """The forward's route comes from the dtype and shape alone, by the
+    backward's rule: the tensor cores for bf16 at chunk 64 or 128 with N
+    and P multiples of 16, the float32 SIMT kernel for the rest."""
+    assert tsops._fwd_route(dtype, chunk, n, p) == route
 
 
 def test_row_excess_passes_roundings_and_rejects_planted_faults():
