@@ -80,7 +80,10 @@ kernel against its plain PyTorch version on the card:
    train step and a seeded dO; layer 0's x, a, B, C of a timed SSM train
    step and a seeded dy; planted faults must fail the attention and SSD
    per-row tolerances), with times, bounds and launch counts by path ->
-   one ``{"kernels": [...]}`` line of ten entries.  The two flash entries
+   one ``{"kernels": [...]}`` line of ten entries.  The ``descend_score``
+   entry adds its device time from a profiler trace taken right after the
+   build on seeded inputs at the main path's shape, the lanes' cluster
+   size and how many such clusters the card holds, and two calls equal.  The two flash entries
    hold the tensor-core kernels (``csrc/flash_attn_sm90.cu``, whose SASS
    must show HGMMA) with SDPA's own excess on the same inputs beside
    theirs, and a ``simt`` sub-entry: the float32 route
@@ -505,7 +508,69 @@ def _tie_margin(nodes, depth, q, us, lane, blk_a, blk_b):
     return math.inf
 
 
-def check_descend_score(sampler, captured, launches):
+#: calls of descend_score in its profiler window (``trace_descend_score``)
+DESCEND_TRACE_CALLS = 20
+
+
+def trace_descend_score():
+    """Kernel 1 at the main path's shape on seeded inputs, right after the
+    build (later in the run the profiler drops a short window's kernels,
+    §6 of PERF.md): a tree built by ``construct_tree`` from normal rows
+    (M_ITEMS x 2K, blocks of BLOCK) and N_SLOTS x 8 lanes of diagonal
+    projectors, each choosing TARGET_SIZE of the 2K eigenvectors, as the
+    main path's first step of a round makes them.  Its mean device time
+    from a ``torch.profiler`` trace of DESCEND_TRACE_CALLS calls (a trace
+    without the kernel is taken again, up to TRACE_ATTEMPTS times), the
+    time through the wrapper, the lanes' cluster size and how many such
+    clusters the card holds at once (``cudaOccupancyMaxActiveClusters``),
+    printed once."""
+    import torch
+    from repro_torch.core.tree import construct_tree
+    from repro_torch.kernels.spec_round import ops
+
+    r, n = 2 * K_RANK, N_SLOTS * 8
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    w = torch.randn((M_ITEMS, r), generator=gen, device=DEVICE)
+    tree = construct_tree(torch.zeros(r, device=DEVICE), w, block=BLOCK)
+    del w
+    pick = torch.rand((n, r), generator=gen, device=DEVICE).argsort(
+        dim=1)[:, :int(TARGET_SIZE)]
+    q = torch.diag_embed(torch.zeros((n, r), device=DEVICE).scatter_(
+        1, pick, 1.0)).contiguous()
+    us = torch.rand((n, tree.depth), generator=gen, device=DEVICE)
+
+    def call():
+        return ops.descend_score(tree.nodes, tree.W, BLOCK, q, us)
+
+    call()
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        tracked = profile_window(
+            lambda: [call() for _ in range(DESCEND_TRACE_CALLS)],
+            "descend_score_kernel")["tracked"]
+        traced = sum(k[2] for k in tracked["kernels_ms"])
+        if traced:
+            break
+    check(traced == DESCEND_TRACE_CALLS,
+          f"descend_score's trace holds {traced} of {DESCEND_TRACE_CALLS} "
+          f"launches after {attempt} attempts")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    c = ops.cluster_size(n, sms)
+    active = ops.max_active_clusters(c, r, torch.device(DEVICE))
+    print(f"descend_score: {n} lanes in clusters of {c} CTAs on {sms} SMs; "
+          f"cudaOccupancyMaxActiveClusters {active}", flush=True)
+    out = {"device_ms": tracked["ms"] / traced,
+           "ms": cuda_ms(call, reps=50), "trace_attempts": attempt,
+           "cluster": c, "max_active_clusters": active, "sms": sms,
+           "shape": {"N": n, "R": r, "block": BLOCK, "depth": tree.depth}}
+    del tree, q, us
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_descend_score(sampler, captured, launches, traced):
+    """Kernel 1 on the main path's first recorded descent calls against
+    its plain version; ``traced``: ``trace_descend_score()``'s reading."""
     import torch
     from repro_torch.kernels.spec_round import ops, ref
 
@@ -537,6 +602,10 @@ def check_descend_score(sampler, captured, launches):
 
     q0, us0 = captured[0]
     n = q0.shape[0]
+    once = ops.descend_score(nodes, W, block, q0, us0)
+    again = ops.descend_score(nodes, W, block, q0, us0)
+    deterministic = all(torch.equal(a, b) for a, b in zip(once, again))
+    ok = ok and deterministic
     ms = cuda_ms(lambda: ops.descend_score(nodes, W, block, q0, us0), reps=50)
     plain_ms = cuda_ms(lambda: ref.descend_score_ref(nodes, W, block, q0, us0),
                        reps=10)
@@ -557,9 +626,19 @@ def check_descend_score(sampler, captured, launches):
             "max_abs_err": max_err, "max_err_over_max_score": worst_rel,
             "tolerance": "scores within 1e-4 of the largest |score| on lanes "
                          "whose block ids agree; differing ids only at a "
-                         "float64 decision margin < 1e-4, on <= 1% of lanes",
+                         "float64 decision margin < 1e-4, on <= 1% of lanes; "
+                         "two calls equal",
             "lanes": lanes, "near_tie_lanes": ties,
-            "mismatched_lanes": mismatched, "ok": ok, "ms": ms,
+            "mismatched_lanes": mismatched, "deterministic": deterministic,
+            "ok": ok, "ms": ms, "device_ms": traced["device_ms"],
+            "device_ms_of": "the kernel's mean device time in a profiler "
+                            "trace of DESCEND_TRACE_CALLS calls at this "
+                            "shape on seeded inputs (trace_descend_score), "
+                            "right after the build",
+            "seeded": {k: traced[k] for k in ("ms", "trace_attempts", "sms",
+                                              "shape")},
+            "cluster": traced["cluster"],
+            "max_active_clusters": traced["max_active_clusters"],
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None,
             "shape": {"N": n, "R": r, "block": block, "depth": depth}}
@@ -2437,6 +2516,7 @@ def main() -> int:
                 print(f"ptxas {kname}: {line.strip()}", flush=True)
     ssd_fwd_traced = trace_ssd_fwd()
     ssd_bwd_traced = trace_ssd_bwd()
+    descend_traced = trace_descend_score()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2444,7 +2524,8 @@ def main() -> int:
     sampler, captured, by_path["main_path"], factors, main_out = \
         run_main_path()
     entries = [check_block_outer_sums(sampler, by_path["main_path"]),
-               check_descend_score(sampler, captured, by_path["main_path"])]
+               check_descend_score(sampler, captured, by_path["main_path"],
+                                   descend_traced)]
     sharded = {"meshes": list(SHARD_COUNTS)}
     sharded["rejection"], rej_counts, q_counts, descents, leaf, mesh2 = \
         run_sharded_rejection(sampler, main_out)

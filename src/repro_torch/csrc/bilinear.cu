@@ -14,22 +14,17 @@
 // B = 64, R = 200) 13.5 MB (4.0 us at 3.35 TB/s) against 165 MFLOP
 // (2.5 us at 67 TFLOP/s).
 //
-// Design: descend_score's leaf stage (leaf_score.cuh) rescheduled, its
-// arithmetic kept.  That stage scores one row a warp at a time and loads
-// two operands from shared memory for every FMA; here a CTA of 4 warps
-// takes 32 rows of one lane, so the sharded path's 64 lanes x 64 rows run
-// as 128 CTAs on the 132 SMs, and each warp scores 8 rows at once: a
-// shared-memory load of q[i][j] feeds 8 FMAs, and column i of its 8 rows
-// (staged transposed) comes in as two 16-byte broadcasts.  Q_n is copied
-// into shared memory with cp.async in two halves of its rows (up to
-// R = kMaxR, 196 KB), the first half's FMAs running while the second
-// lands; above kMaxR it is read from global memory (L1/L2), 224 columns a
-// pass.  Every chain is leaf_block_scores's, in its order: for each column
-// j, c_j = one fmaf chain over i = 0..R-1 from 0; lane l's partial = one
-// fmaf(c_j, z_j, .) chain over j = l, l+32, ... ascending; then the xor
-// butterfly 16, 8, 4, 2, 1.  So a block's scores stay bit-equal to
-// descend_score's raw scores of that block (kernel 1 keeps the old
-// schedule).
+// Design: a CTA of 4 warps takes 32 rows of one lane, so the sharded
+// path's 64 lanes x 64 rows run as 128 CTAs on the 132 SMs, and each warp
+// scores 8 rows at once with leaf_score.cuh's functions, which
+// descend_score's leaf stage runs too: a shared-memory load of q[i][j]
+// feeds 8 FMAs, and column i of its 8 rows (staged transposed) comes in as
+// two 16-byte broadcasts.  Q_n is copied into shared memory with cp.async
+// in two halves of its rows (up to R = kMaxR, 196 KB), the first half's
+// FMAs running while the second lands; above kMaxR it is read from global
+// memory (L1/L2), 224 columns a pass.  The chains are leaf_score.cuh's, so
+// a block's scores are bit-equal to descend_score's raw scores of that
+// block.
 //
 // bilinear replaces bilinear_pallas (_bilinear_kernel): p[m] =
 // z_m^T W z_m over the rows of Z (M, R) against one R x R matrix, float32
@@ -48,59 +43,22 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "leaf_score.cuh"
 #include "quad_form.cuh"
 
 namespace {
 
+using repro_torch::kLeafSlots;
+using repro_torch::leaf_butterfly;
+using repro_torch::leaf_columns;
+using repro_torch::leaf_partials;
+
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRowsPerWarp = 8;                  // a warp's rows at once
+constexpr int kRowsPerWarp = repro_torch::kLeafRows;  // a warp's rows at once
 constexpr int kRowsPerCta = kWarps * kRowsPerWarp;
-constexpr int kSlots = 7;                        // columns j = j0 + 32k + lane
-constexpr int kMaxR = 32 * kSlots;               // Q on chip up to here
+constexpr int kMaxR = repro_torch::kLeafMaxR;          // Q on chip up to here
 constexpr int kMaxSmem = 232448;                 // bytes a CTA may use
-
-// c[t][k] = fmaf(z_t[i], q[i][jc[k]], c[t][k]) for i = i0 .. i1-1 in
-// order.  zw: the warp's rows, transposed (column i's 8 values at zw[8i]).
-__device__ __forceinline__ void leaf_columns(
-    const float* __restrict__ zw, const float* __restrict__ q, int R,
-    int i0, int i1, const int (&jc)[kSlots],
-    float (&c)[kRowsPerWarp][kSlots]) {
-#pragma unroll 2
-  for (int i = i0; i < i1; ++i) {
-    const float4 za = *reinterpret_cast<const float4*>(zw + 8 * i);
-    const float4 zb = *reinterpret_cast<const float4*>(zw + 8 * i + 4);
-    const float z[kRowsPerWarp] = {za.x, za.y, za.z, za.w,
-                                   zb.x, zb.y, zb.z, zb.w};
-    const float* qi = q + (long long)i * R;
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      const float qv = qi[jc[k]];
-#pragma unroll
-      for (int t = 0; t < kRowsPerWarp; ++t) c[t][k] = fmaf(z[t], qv, c[t][k]);
-    }
-  }
-}
-
-// acc[t] = fmaf(c[t][k], z_t[j], acc[t]) for the valid columns j = j0 +
-// 32k + lane, k ascending.
-__device__ __forceinline__ void leaf_partials(
-    const float* __restrict__ zw, int R, int j0, int lane,
-    const float (&c)[kRowsPerWarp][kSlots], float (&acc)[kRowsPerWarp]) {
-#pragma unroll
-  for (int k = 0; k < kSlots; ++k) {
-    const int j = j0 + 32 * k + lane;
-    if (j < R) {
-      const float4 za = *reinterpret_cast<const float4*>(zw + 8 * j);
-      const float4 zb = *reinterpret_cast<const float4*>(zw + 8 * j + 4);
-      const float z[kRowsPerWarp] = {za.x, za.y, za.z, za.w,
-                                     zb.x, zb.y, zb.z, zb.w};
-#pragma unroll
-      for (int t = 0; t < kRowsPerWarp; ++t)
-        acc[t] = fmaf(c[t][k], z[t], acc[t]);
-    }
-  }
-}
 
 // One CTA per (lane n, group of kRowsPerCta rows); groups = ceil(B / 32).
 // vec: R % 4 == 0 and Q 16-byte aligned (Q_n copied 16 bytes at a time).
@@ -152,10 +110,10 @@ bilinear_batched_kernel(const float* __restrict__ Z,
 #pragma unroll
   for (int t = 0; t < kRowsPerWarp; ++t) acc[t] = 0.f;
   for (int j0 = 0; j0 < R; j0 += kMaxR) {  // one pass when Q is on chip
-    float c[kRowsPerWarp][kSlots];
-    int jc[kSlots];  // past R: any valid column, its c is never used
+    float c[kRowsPerWarp][kLeafSlots];
+    int jc[kLeafSlots];  // past R: any valid column, its c is never used
 #pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
+    for (int k = 0; k < kLeafSlots; ++k) {
       jc[k] = min(j0 + 32 * k + lane, R - 1);
 #pragma unroll
       for (int t = 0; t < kRowsPerWarp; ++t) c[t][k] = 0.f;
@@ -170,13 +128,7 @@ bilinear_batched_kernel(const float* __restrict__ Z,
     }
     leaf_partials(zw, R, j0, lane, c, acc);
   }
-  float mine = 0.f;
-#pragma unroll
-  for (int t = 0; t < kRowsPerWarp; ++t) {
-    for (int o = 16; o > 0; o >>= 1)
-      acc[t] += __shfl_xor_sync(0xffffffffu, acc[t], o);
-    if (lane == t) mine = acc[t];
-  }
+  const float mine = leaf_butterfly(acc, lane);
   const int row = row0 + warp * kRowsPerWarp + lane;
   if (lane < kRowsPerWarp && row < B) out[n * B + row] = mine;
 }

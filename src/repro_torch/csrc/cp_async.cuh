@@ -1,9 +1,16 @@
-// Asynchronous global -> shared copies (cp.async, sm_80 and later) for the
-// kernels that stage a tile in shared memory without passing it through
-// registers.  A thread issues its copies, commits them as a group, and
-// waits for its own groups; a __syncthreads() after the wait makes every
-// thread's copies visible to the CTA.
+// Asynchronous global -> shared copies for the kernels that stage a tile in
+// shared memory without passing it through registers.
+//
+// cp.async (sm_80 and later): a thread issues its copies, commits them as
+// a group, and waits for its own groups; a __syncthreads() after the wait
+// makes every thread's copies visible to the CTA.
+//
+// Bulk copies (cp.async.bulk, sm_90): one thread copies a whole range,
+// which completes on an mbarrier in shared memory; the threads that read
+// it wait on the barrier's phase.
 #pragma once
+
+#include <stdint.h>
 
 namespace repro_torch {
 
@@ -31,6 +38,54 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   shared_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Arrive on `bar`, expecting `bytes` of copies to complete on it.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          shared_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Spin until the barrier's phase `parity` has completed; a copy that never
+// lands traps (a launch error) after ~2^28 tries instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t tries = 0;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(shared_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 28)) __trap();
+  }
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) of global
+// memory into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(shared_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(shared_addr(bar))
+      : "memory");
 }
 
 }  // namespace repro_torch

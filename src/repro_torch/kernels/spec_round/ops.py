@@ -4,7 +4,8 @@
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
 launches ``csrc/spec_round.cu`` or raises — there is no fallback, for
 ``depth == 0`` included.  The tree arrives as ``SampleTree``'s one
-contiguous node stack, so nothing is concatenated or padded per call.
+contiguous node stack, so nothing is concatenated or padded per call.  The
+kernel runs each lane on a cluster of ``cluster_size(N, SMs)`` CTAs.
 """
 from __future__ import annotations
 
@@ -16,23 +17,60 @@ from .. import _build
 from .ref import descend_score_ref
 
 #: the largest R the kernel takes: Q (R x R float32) must fit in one SM's
-#: shared memory next to one leaf row per warp (``csrc/spec_round.cu``)
+#: shared memory next to the 32 leaf rows it stages (``csrc/spec_round.cu``)
 MAX_R = 224
 
+#: the most CTAs a lane's cluster takes (the portable cluster size)
+MAX_CLUSTER = 8
 
 #: launches of the CUDA kernel by ``descend_score`` since the count was last
 #: set to 0 (plain-version calls on CPU tensors do not count)
 launches = 0
 
+_LAUNCH = None
+_SMS = {}
+
+
+def cluster_size(n: int, sms: int) -> int:
+    """CTAs a lane for ``n`` lanes on a card of ``sms`` SMs: the largest
+    power of two <= MAX_CLUSTER with n * c <= sms, and at least 1."""
+    c = MAX_CLUSTER
+    while c > 1 and n * c > sms:
+        c //= 2
+    return c
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
 def _lib():
-    lib = _build.load("spec_round")
-    fn = lib.descend_score_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    global _LAUNCH
+    if _LAUNCH is None:
+        fn = _build.load("spec_round").descend_score_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _LAUNCH = fn
+    return _LAUNCH
+
+
+def max_active_clusters(cluster: int, r: int, dev: torch.device) -> int:
+    """How many clusters of ``cluster`` CTAs at R = ``r`` the card ``dev``
+    holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    fn = _build.load("spec_round").descend_score_max_active_clusters
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    return fn
+    out = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        _build.check(fn(cluster, r, ctypes.byref(out)),
+                     "descend_score occupancy")
+    return out.value
 
 
 def descend_score(nodes: torch.Tensor, W: torch.Tensor, block: int,
@@ -79,7 +117,8 @@ def descend_score(nodes: torch.Tensor, W: torch.Tensor, block: int,
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(fn(nodes.data_ptr(), W.data_ptr(), q.data_ptr(),
                         us.data_ptr(), us.shape[1], n, depth, block, r,
-                        blk.data_ptr(), scores.data_ptr(), stream),
+                        cluster_size(n, _sm_count(dev)), blk.data_ptr(),
+                        scores.data_ptr(), stream),
                      "descend_score")
     global launches
     launches += 1

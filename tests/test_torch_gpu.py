@@ -95,18 +95,44 @@ def _tree(rng, depth, r, dev):
     return torch.as_tensor(np.concatenate(levels[::-1]), device=dev)
 
 
-@pytest.mark.parametrize("depth,block,r,n", [(0, 4, 8, 3), (3, 4, 8, 5),
-                                             (6, 3, 40, 9), (5, 8, 33, 12),
-                                             (2, 8, 130, 4), (8, 64, 200, 16)])
+def _card_tree(gen, depth, r, dev):
+    """A mass-consistent tree made on the card: random Gram leaves, each
+    parent the sum of its children; the node stack, root first."""
+    leaves = torch.randn((1 << depth, r, r), generator=gen, device=dev)
+    nodes = torch.bmm(leaves, leaves.transpose(1, 2))
+    levels = [nodes]
+    for _ in range(depth):
+        nodes = nodes[0::2] + nodes[1::2]
+        levels.append(nodes)
+    return torch.cat(levels[::-1])
+
+
+def _card_descent_inputs(cuda, depth, block, r, n, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    nodes = _card_tree(gen, depth, r, cuda)
+    w = torch.randn(((1 << depth) * block, r), generator=gen, device=cuda)
+    qh = torch.randn((n, r, r), generator=gen, device=cuda)
+    q = torch.bmm(qh, qh.transpose(1, 2)) / r
+    us = torch.rand((n, max(depth, 1)), generator=gen, device=cuda)
+    return nodes, w, q, us
+
+
+# Besides a few shapes, lane counts around the cluster sizes' edges on 132
+# SMs (c = 8 at 1, 2 at 64 and 66, 1 from 67 on, and past the SM count),
+# widths at the edges of the 16-byte grid and of the on-chip limit, whole
+# and ragged blocks.
+_CLUSTER_DEPTH = {64: 10, 5: 0, 63: 4}
+_DESCEND_CASES = [(0, 4, 8, 3), (3, 4, 8, 5), (6, 3, 40, 9), (5, 8, 33, 12),
+                  (2, 8, 130, 4), (8, 64, 200, 16)] + [
+    (_CLUSTER_DEPTH[block], block, r, n)
+    for n in (1, 64, 66, 67, 132, 133, 140) for r in (1, 33, 200, 224)
+    for block in (64, 5, 63)]
+
+
+@pytest.mark.parametrize("depth,block,r,n", _DESCEND_CASES)
 def test_descend_score_kernel(cuda, depth, block, r, n):
-    rng = np.random.default_rng(depth * 1000 + block * 100 + r)
-    nodes = _tree(rng, depth, r, cuda)
-    w = torch.as_tensor(rng.normal(size=((1 << depth) * block, r))
-                        .astype(np.float32), device=cuda)
-    qh = rng.normal(size=(n, r, r)).astype(np.float32)
-    q = torch.as_tensor(np.einsum("nik,njk->nij", qh, qh) / r, device=cuda)
-    us = torch.as_tensor(rng.uniform(size=(n, max(depth, 1)))
-                         .astype(np.float32), device=cuda)
+    nodes, w, q, us = _card_descent_inputs(
+        cuda, depth, block, r, n, seed=depth * 100_000 + n * 1000 + r + block)
     before = spec_ops.launches
     blk, sc = spec_ops.descend_score(nodes, w, block, q, us)
     torch.cuda.synchronize()
@@ -115,6 +141,17 @@ def test_descend_score_kernel(cuda, depth, block, r, n):
     assert torch.equal(blk, blk_ref)
     torch.testing.assert_close(sc, sc_ref, rtol=1e-4,
                                atol=1e-4 * float(sc_ref.abs().max()))
+
+
+@pytest.mark.parametrize("n", [3, 64, 140])
+def test_descend_score_is_deterministic(cuda, n):
+    """The cluster's partial sums meet in a fixed order: two calls on the
+    same inputs give the same bits (c = 8, 2 and 1)."""
+    nodes, w, q, us = _card_descent_inputs(cuda, 10, 64, 200, n, seed=n)
+    first = spec_ops.descend_score(nodes, w, 64, q, us)
+    second = spec_ops.descend_score(nodes, w, 64, q, us)
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
 
 
 def test_descend_score_refuses_wide_r(cuda):
@@ -324,7 +361,7 @@ def test_bilinear_batched_refuses_wide_r(cuda):
 
 _LEAF_CASES = [(3, 5, 8, 6), (5, 64, 33, 9), (4, 64, 200, 16)] + [
     (3, block, r, n) for r in _EDGE_R if r <= 224 for block in _EDGE_ROWS
-    for n in (9, 140)]
+    for n in (9, 64, 66, 140)]
 
 
 @pytest.mark.parametrize("depth,block,r,n", _LEAF_CASES)

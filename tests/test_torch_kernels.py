@@ -98,6 +98,23 @@ def test_descend_score_checks_shapes():
                                torch.as_tensor(q), torch.as_tensor(us[:, :2]))
 
 
+@pytest.mark.parametrize("sms", [132, 20])
+def test_descend_score_cluster_size(sms):
+    """CTAs a lane: a power of two up to 8, the largest with N c <= the SM
+    count (2 at the main path's 64 lanes on 132 SMs), and 1 once N
+    reaches the SM count."""
+    for n in range(1, 301):
+        c = spec_ops.cluster_size(n, sms)
+        assert c in (1, 2, 4, 8)
+        assert c <= spec_ops.MAX_CLUSTER
+        if n >= sms:
+            assert c == 1
+        else:
+            assert n * c <= sms
+            assert c == spec_ops.MAX_CLUSTER or n * 2 * c > sms
+    assert spec_ops.cluster_size(64, 132) == 2
+
+
 def test_shallow_max_matches_reference():
     from repro.kernels.spec_round import ref as jax_spec_ref
 

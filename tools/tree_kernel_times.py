@@ -1,9 +1,11 @@
-"""Time ``block_outer_sums``, ``bilinear_batched``, ``gathered_block_grams``,
-``score_all`` and ``bilinear`` on the card at the shapes of
+"""Time ``descend_score``, ``block_outer_sums``, ``bilinear_batched``,
+``gathered_block_grams``, ``score_all`` and ``bilinear`` on the card at the
+shapes of
 ``chip_smoke.py``'s paths, beside their one-call PyTorch yardsticks,
 ``score_all_sharded`` at a mesh's M/S rows a shard and ``score_all`` on a
 few rows (host dispatch), and the MCMC path's greedy start, which calls
-``score_all`` eight times.
+``score_all`` eight times.  ``--only descend_score`` times that kernel
+alone.
 
 It times the kernels of whichever ``repro_torch`` comes first on
 ``PYTHONPATH``, so two trees are compared in one call by running it in
@@ -68,6 +70,43 @@ def device_ms(fn, name: str, reps: int = 50) -> float:
     return total / reps / 1e3
 
 
+def descend_score_times(g, dev) -> dict:
+    """``descend_score`` at the main path's shape: a tree built by
+    ``construct_tree`` from normal rows (M = 2^20, R = 200, blocks of 64:
+    depth 14) and 64 lanes of diagonal projectors, each choosing 10 of the
+    200 eigenvectors, as the main path's first step of a round makes them
+    (E|Y| ~ 10); timed at depth 14 and at depth 0 (the first leaf block
+    alone, under the root: the leaf stage).  ``blk_sum`` ties the descents
+    of two trees' runs together."""
+    import torch
+    from repro_torch.core.tree import construct_tree
+    from repro_torch.kernels.spec_round import ops as spec_ops
+
+    m, r, block, n = 1 << 20, 200, 64, 64
+    w = torch.randn((m, r), generator=g, device=dev)
+    tree = construct_tree(torch.zeros(r, device=dev), w, block=block)
+    del w
+    pick = torch.rand((n, r), generator=g, device=dev).argsort(dim=1)[:, :10]
+    q = torch.diag_embed(torch.zeros((n, r), device=dev).scatter_(
+        1, pick, 1.0)).contiguous()
+    us = torch.rand((n, tree.depth), generator=g, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pick_c = getattr(spec_ops, "cluster_size", None)  # absent where lanes take one CTA
+    out = {"shape": [n, r, block], "sms": sms,
+           "cluster": pick_c(n, sms) if pick_c else 1}
+    for name, nodes, w_rows in (
+            (f"depth{tree.depth}", tree.nodes, tree.W),
+            ("depth0", tree.nodes[:1], tree.W[:block])):
+        fn = lambda: spec_ops.descend_score(nodes, w_rows, block, q, us)  # noqa: E731
+        blk, _ = fn()
+        out[name] = {"ms": cuda_ms(fn, 200),
+                     "device_ms": device_ms(fn, "descend_score_kernel"),
+                     "blk_sum": int(blk.sum())}
+    del tree
+    torch.cuda.empty_cache()
+    return out
+
+
 def greedy_start_ms(m: int, k: int, seed: int, dev, starts: int = 5) -> dict:
     """Host ms of the MCMC path's greedy start (``core/mcmc.py::
     init_greedy``: one chain of size 8, i.e. 8 ``score_all`` calls at
@@ -97,6 +136,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tag", required=True)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=["descend_score"],
+                    help="time this kernel alone")
     args = ap.parse_args()
     import torch
 
@@ -116,6 +157,10 @@ def main() -> int:
     out = {"tag": args.tag, "card": smi,
            "allow_tf32": bool(torch.backends.cuda.matmul.allow_tf32),
            "source": tree_sum_ops.__file__}
+    out["descend_score"] = descend_score_times(g, dev)
+    if args.only:
+        print(json.dumps(out), flush=True)
+        return 0
 
     # block_outer_sums: the main path's leaf level (2^20 rows of R = 200,
     # blocks of 64)
