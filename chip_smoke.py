@@ -16,7 +16,15 @@ kernel against its plain PyTorch version on the card:
    warm requests; every result is checked, and the kernels' launch counts
    are read around this run only -> one ``{"main_path": ...}`` line (every
    later phase sets the counts to 0 before it and reads them after it);
-3. the dynamic catalog at the same width: a ``Catalog`` of the main path's
+3. the Cholesky sampler (Alg. 1) on the main path's state:
+   ``sample_cholesky_spectral`` on one key a SM (one draw a CTA of the
+   ``cholesky_scan`` kernel) and on one key (equal to the wave's row 0),
+   mean |Y| within 5 standard errors of E|Y| = tr(W Z^T Z), then the
+   samplers on ported kernels: a sequential ``sample_batch`` of 8
+   requests and a ``sample_k_ndpp`` of size 10 (``descend_score``), one
+   ``sample_elementary_dense`` draw (``bilinear`` over all 2^20 rows a
+   step) -> ``{"cholesky": ...}``;
+4. the dynamic catalog at the same width: a ``Catalog`` of the main path's
    factors with 2^20 rows of capacity and 2^20 - 4,096 live items
    (staleness 1), four timed mutation batches (insert 2,048 items into the
    slack, update 1,024, delete 1,024 with the snapshot deferred, refresh),
@@ -25,11 +33,11 @@ kernel against its plain PyTorch version on the card:
    ``swap_catalog`` to a further-deleted version after its first tick:
    pre-swap requests must equal an engine that never swapped, and no
    request may draw an item deleted in its version -> ``{"catalog": ...}``;
-4. the MCMC backend on the main path's spectral state: fixed-size chains
+5. the MCMC backend on the main path's spectral state: fixed-size chains
    (k = 8, the main path's mean |Y|) from stochastic-greedy starts, 8
    slots, 64 requests, each result 8 distinct items with det(L_Y) > 0
    -> ``{"mcmc": ...}``;
-5. item-axis sharding at the same width on meshes of S = 1 and S = 2
+6. item-axis sharding at the same width on meshes of S = 1 and S = 2
    shards (both on the one card, or on two cards where the host has
    them): 64 rejection requests through ``SamplerEngine(mesh=)`` per S
    (S = 1 and S = 2 equal per rid, valid, mean trials against
@@ -41,7 +49,7 @@ kernel against its plain PyTorch version on the card:
    ``torch.equal`` to a sharded rebuild and to the unsharded catalog's
    tree; 16 requests equal at S = 1 and 2) and 16 MCMC requests (S = 1
    and 2 equal) -> one ``{"sharded": ...}`` line;
-6. the LM template's training path, with the NDPP phases' memory freed:
+7. the LM template's training path, with the NDPP phases' memory freed:
    qwen3-1.7b at full width and depth (28 layers, d_model 2,048, GQA 16 /
    8 heads of 128, vocab 151,936, bfloat16, 2.03 B parameters) from the
    port's seeded init, AdamW with the reference defaults, ``lm_batch`` at
@@ -59,7 +67,7 @@ kernel against its plain PyTorch version on the card:
    of the flash kernels, step 0's loss, grad norm and every gradient leaf
    on the same params against the kernels', then the witness's own
    steps' losses and grad norms against the kernel run's;
-7. the SSM training path, with the qwen3 phase's memory freed:
+8. the SSM training path, with the qwen3 phase's memory freed:
    mamba2-1.3b at full width and depth (48 FFN-less Mamba2 layers, d_model
    2,048, d_inner 4,096, 64 heads of P = 64, state N = 128, chunk 128,
    vocab 50,280, bfloat16, 1.44 B parameters) through the same steps at
@@ -72,7 +80,7 @@ kernel against its plain PyTorch version on the card:
    that runs ``ssd_chunked_ref`` under autograd in place of the kernels,
    both paths in float32 (bf16 rounding alone moves mamba2's step-0
    gradients by more than the witness's tolerance: how far is a reading);
-8. each kernel against its plain version at its path's shapes, on inputs
+9. each kernel against its plain version at its path's shapes, on inputs
    the paths themselves produced (the main path's tree rows and first
    round's projectors and uniforms; the catalog's update batch; the greedy
    start's score matrices; the sharded descent's leaf blocks and
@@ -80,7 +88,14 @@ kernel against its plain PyTorch version on the card:
    train step and a seeded dO; layer 0's x, a, B, C of a timed SSM train
    step and a seeded dy; planted faults must fail the attention and SSD
    per-row tolerances), with times, bounds and launch counts by path ->
-   one ``{"kernels": [...]}`` line of ten entries.  The ``descend_score``
+   one ``{"kernels": [...]}`` line of eleven entries.  The
+   ``cholesky_scan`` entry is timed at the wave's full M and held to its
+   plain version by the flip rule (decisions equal up to each draw's
+   first flip; p within 1e-4 of the plain p relative, plus 1e-6 of the
+   largest, before it, and u that close to the plain p at it) on the
+   first 2^14 rows and on 1,024 seeded rows whose marginals are O(0.1);
+   on both, the rule must refuse the plain scan with each planted fault
+   (all zeros, the downdate skipped, the denominator's sign flipped).  The ``descend_score
    entry adds its device time from a profiler trace taken right after the
    build on seeded inputs at the main path's shape, the lanes' cluster
    size and how many such clusters the card holds, and two calls equal.  The two flash entries
@@ -98,7 +113,7 @@ kernel against its plain PyTorch version on the card:
    every float32 operand a bf16 pair hi + lo, two calls equal) with the
    float32 SIMT kernel, the other route, timed beside it on the same
    inputs (the forward's chunk-start states held to the SIMT kernel's);
-9. the last line: ``{"ok": true, "device": {...}}``.
+10. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero (an exception's traceback, or a FAIL line)
 before the last line: no GPU, a build or launch error, a parity miss, an
@@ -145,7 +160,7 @@ TRAIN_STEPS = 3             # timed steps, after one cold step
 TRAIN_SSM_ARCH = "mamba2-1.3b"  # the SSM train path, full width and depth
 DEVICE = "cuda"
 KERNEL_SOURCES = ("tree_sum", "spec_round", "mcmc_score", "bilinear",
-                  "flash_attn", "flash_attn_sm90", "ssd")
+                  "flash_attn", "flash_attn_sm90", "ssd", "cholesky_scan")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM data sheet, fp32 outside tensor cores
 BF16_FLOP_PER_S = 989e12   # H100 SXM data sheet, dense bf16 tensor cores
@@ -288,6 +303,7 @@ def _count_owners():
     """(kernel name, module, attribute) of every kernel's launch count."""
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.bilinear import ops as bilinear_ops
+    from repro_torch.kernels.cholesky_scan import ops as scan_ops
     from repro_torch.kernels.mcmc_score import ops as mcmc_score_ops
     from repro_torch.kernels.spec_round import ops as spec_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
@@ -302,7 +318,8 @@ def _count_owners():
             ("flash_attention", attn_ops, "launches"),
             ("flash_attention_bwd", attn_ops, "bwd_launches"),
             ("ssd", ssd_ops, "launches"),
-            ("ssd_bwd", ssd_ops, "bwd_launches"))
+            ("ssd_bwd", ssd_ops, "bwd_launches"),
+            ("cholesky_scan", scan_ops, "launches"))
 
 
 def _route_owners():
@@ -642,6 +659,204 @@ def check_descend_score(sampler, captured, launches, traced):
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None,
             "shape": {"N": n, "R": r, "block": block, "depth": depth}}
+
+
+# ------------------------------------------------------ the Cholesky sampler
+CHOL_K_SIZE = 10           # the k-NDPP draw's size: the main path's E|Y|
+CHOL_BATCH = 8             # requests of the sequential sample_batch
+CHOL_PLAIN_M = 1 << 14     # the rows the scan is held to its plain version on
+CHOL_DECIDE_M = 1024       # seeded rows whose marginals are O(0.1): every
+                           # draw takes ~170 of them
+
+
+def run_cholesky(sampler):
+    """Alg. 1 on the main path's state: ``sample_cholesky_spectral`` on one
+    key a SM (a wave: one draw a CTA) and on one key, mean |Y| against
+    E|Y| = tr(W Z^T Z), then the samplers that ride on ported kernels: a
+    sequential ``sample_batch`` of 8 requests and a ``sample_k_ndpp`` of
+    size 10 (``descend_score``), one ``sample_elementary_dense`` draw
+    (``bilinear`` over every row at each step).  Returns the path's launch
+    counts and the wave's keys, X and W for the kernel check."""
+    import torch
+    from repro_torch import random as trandom
+    from repro_torch.core import (
+        marginal_inner,
+        sample_batch,
+        sample_cholesky_spectral,
+        sample_elementary_dense,
+        sample_k_ndpp,
+        x_from_sigma,
+    )
+    from repro_torch.core.rejection import RejectionSample
+
+    sp, tree = sampler.sp, sampler.tree
+    m, r = sp.Z.shape
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    keys = trandom.split(trandom.PRNGKey(SEED + 20_000, device=DEVICE), n_sm)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    wave, t_wave = timed(lambda: sample_cholesky_spectral(sp, keys))
+    one, t_one = timed(lambda: sample_cholesky_spectral(sp, keys[0]))
+    peak = torch.cuda.max_memory_allocated()
+    batch, t_batch = timed(lambda: sample_batch(
+        sampler, trandom.PRNGKey(SEED + 30_000, device=DEVICE), CHOL_BATCH))
+    kres, t_k = timed(lambda: sample_k_ndpp(
+        sampler, CHOL_K_SIZE, trandom.PRNGKey(SEED + 40_000, device=DEVICE)))
+    kd = trandom.split(trandom.PRNGKey(SEED + 50_000, device=DEVICE))
+    e_mask = trandom.uniform(kd[0], (r,)) < tree.lam / (tree.lam + 1.0)
+    (dense, _), t_dense = timed(
+        lambda: sample_elementary_dense(tree.W, e_mask, kd[1]))
+    launches = read_counts()
+
+    check(wave.shape == (n_sm, m) and wave.dtype == torch.bool,
+          f"wave of shape {tuple(wave.shape)}, {wave.dtype}")
+    check(torch.equal(one, wave[0]), "one key's draw differs from row 0 of "
+          "the wave's")
+    # E|Y| = tr(K) and Var|Y| = tr(K) - tr(K^2) for K = Z W Z^T, in float64
+    x = x_from_sigma(sp.K, sp.sigma)
+    w64 = marginal_inner(sp.Z.double(), x.double())
+    kg = w64 @ (sp.Z.double().T @ sp.Z.double())
+    expect = float(torch.trace(kg))
+    var = expect - float(torch.trace(kg @ kg))
+    sizes = torch.cat([wave.sum(1), one.sum()[None]]).double().cpu()
+    se = math.sqrt(max(var, 0.0) / sizes.numel())
+    mean = float(sizes.mean())
+    check(abs(mean - expect) <= 5 * se,
+          f"mean |Y| {mean} not within 5 standard errors ({se}) of E|Y| "
+          f"{expect}")
+    rows = [RejectionSample(*(t[i].cpu() for t in batch))
+            for i in range(CHOL_BATCH)]
+    bad = [i for i, res in enumerate(rows) if not valid_result(res, m, 1000)]
+    check(not bad, f"invalid sample_batch results {bad}")
+    kres = RejectionSample(*(t.cpu() for t in kres))
+    check(valid_result(kres, m, 1000) and int(kres.mask.sum()) == CHOL_K_SIZE,
+          f"sample_k_ndpp gave {int(kres.mask.sum())} items, trials "
+          f"{int(kres.trials)}, accepted {bool(kres.accepted)}")
+    chosen = dense[dense >= 0].cpu()
+    check(chosen.numel() == int(e_mask.sum())
+          and len(set(chosen.tolist())) == chosen.numel()
+          and bool((chosen < m).all()),
+          f"sample_elementary_dense gave {chosen.tolist()} for |E| = "
+          f"{int(e_mask.sum())}")
+    for name in ("cholesky_scan", "descend_score", "bilinear"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the cholesky path")
+    emit({"cholesky": {
+        "M": m, "R": r, "draws_a_wave": n_sm, "wave_s": t_wave,
+        "draws_per_s": n_sm / t_wave, "one_key_s": t_one,
+        "one_key_equal_to_row_0": True, "mean_size": mean,
+        "expected_size": expect, "size_standard_error": se,
+        "peak_device_gb": peak / 1e9,
+        "sample_batch": {"requests": CHOL_BATCH, "s": t_batch,
+                         "trials": [int(t.trials) for t in rows],
+                         "accepted": sum(bool(t.accepted) for t in rows)},
+        "sample_k_ndpp": {"k": CHOL_K_SIZE, "s": t_k,
+                          "trials": int(kres.trials),
+                          "size": int(kres.mask.sum())},
+        "sample_elementary_dense": {"s": t_dense, "size": chosen.numel()},
+        "launches": launches}})
+    return launches, keys, x
+
+
+def _hold_scan(zs, W, us, take, p):
+    """``take, p`` of the kernel against the plain version by the flip rule
+    (``ref.flip_gaps``), and each planted fault of ``ref.FAULTS`` against
+    it too: the rule must refuse every one."""
+    from repro_torch.kernels.cholesky_scan import ref
+
+    take_r, p_r = ref.cholesky_scan_ref(zs, W, us)
+    gaps = ref.flip_gaps(take, p, take_r, p_r, us)
+    faults = {}
+    for fault in ref.FAULTS:
+        bad = ref.flip_gaps(*ref.planted_scan(zs, W, us, fault), take_r, p_r,
+                            us)
+        faults[fault] = {"p_excess": bad["p_excess"],
+                         "flip_excess": bad["flip_excess"],
+                         "refused": not bad["within"]}
+    gaps["mean_p"] = float(p_r.mean())
+    return gaps, faults
+
+
+def check_cholesky_scan(sp, keys, x, launches):
+    """The scan kernel on the main path's rows and inner matrix with the
+    wave's uniforms: timed at full M; held to its plain version by the flip
+    rule (``ref.flip_gaps``: decisions equal up to each draw's first flip,
+    |p - p_plain| <= RTOL |p_plain| + ATOL_FRAC max|p_plain| before it, a
+    flip only where |u - p_plain| is within that) on the first CHOL_PLAIN_M
+    rows, and on CHOL_DECIDE_M seeded rows with marginals of O(0.1) where
+    the draws take items; on both, the rule refuses each planted fault;
+    two calls equal, one launch a call."""
+    import torch
+    from repro_torch import random as trandom
+    from repro_torch.core import marginal_inner
+    from repro_torch.kernels.cholesky_scan import ops, ref
+
+    Z = sp.Z.contiguous()
+    m, r = Z.shape
+    W = marginal_inner(Z, x)
+    n = keys.shape[0]
+    u = trandom.uniform(keys, (m,))
+    ms = cuda_ms(lambda: ops.cholesky_scan(Z, W, u), reps=1, warmup=0)
+    n_bytes = 4.0 * (m * r + r * r + n * m) + 5.0 * n * m
+    bms, by = bound(n_bytes, n * 6.0 * r * r * m)
+    zs = Z[:CHOL_PLAIN_M].contiguous()
+    us = u[:, :CHOL_PLAIN_M].contiguous()
+    del u
+    before = ops.launches
+    take, p = ops.cholesky_scan(zs, W, us)
+    once = ops.launches - before
+    again = ops.cholesky_scan(zs, W, us)
+    deterministic = torch.equal(take, again[0]) and torch.equal(p, again[1])
+    gaps, faults = _hold_scan(zs, W, us, take, p)
+    zd, wd, ud = ref.random_inputs(CHOL_DECIDE_M, r, n, SEED + 60_000,
+                                   DEVICE)
+    decide, decide_faults = _hold_scan(zd, wd, ud,
+                                       *ops.cholesky_scan(zd, wd, ud))
+    torch.cuda.synchronize()
+    refused = all(f["refused"] for fs in (faults, decide_faults)
+                  for f in fs.values())
+    ok = (gaps["within"] and decide["within"] and refused and deterministic
+          and once == 1)
+    ms_small = cuda_ms(lambda: ops.cholesky_scan(zs, W, us), reps=3)
+    plain_ms = cuda_ms(lambda: ref.cholesky_scan_ref(zs, W, us), reps=1,
+                       warmup=0)
+    held = ("p_excess", "flip_excess", "flipped_draws", "compared_takes",
+            "max_p_gap", "mean_p")
+    return {"name": "cholesky_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/cholesky_scan.cu",
+            "replaces": "none: the port's own kernel for the lax.scan of "
+                        "src/repro/core/cholesky.py:54 (sample_cholesky_inner)",
+            "design": ops.route(r),
+            "launches": launches["cholesky_scan"],
+            "max_abs_err": gaps["max_p_gap"],
+            "tolerance": f"decisions equal up to each draw's first flip; "
+                         f"before it |p - p_plain| <= {ref.RTOL} |p_plain| + "
+                         f"{ref.ATOL_FRAC} max|p_plain|, at it |u - p_plain| "
+                         f"within the same (excess <= 1); on the main path's "
+                         f"first {CHOL_PLAIN_M} rows and on "
+                         f"{CHOL_DECIDE_M} seeded rows of marginals O(0.1); "
+                         f"every planted fault refused; two calls equal; one "
+                         f"launch a call",
+            **{k: gaps[k] for k in held if k != "max_p_gap"},
+            "decisions": {"shape": {"M": CHOL_DECIDE_M, "N": n, "R": r},
+                          **{k: decide[k] for k in held}},
+            "planted_faults": {"main_rows": faults,
+                               "decision_rows": decide_faults},
+            "deterministic": deterministic, "launches_a_call": once,
+            "ok": ok, "ms": ms, "ms_of": f"one call at M = {m}, N = {n}",
+            "plain_ms": plain_ms, "ms_at_plain_shape": ms_small,
+            "plain_shape": {"M": CHOL_PLAIN_M, "N": n, "R": r},
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "library": "none (no single PyTorch call)",
+            "shape": {"M": m, "N": n, "R": r}}
 
 
 # ------------------------------------------------------- the dynamic catalog
@@ -2526,6 +2741,12 @@ def main() -> int:
     entries = [check_block_outer_sums(sampler, by_path["main_path"]),
                check_descend_score(sampler, captured, by_path["main_path"],
                                    descend_traced)]
+    by_path["cholesky"], chol_keys, chol_x = run_cholesky(sampler)
+    entries.append(check_cholesky_scan(sampler.sp, chol_keys, chol_x,
+                                       by_path["cholesky"]))
+    del chol_keys, chol_x
+    gc.collect()
+    torch.cuda.empty_cache()
     sharded = {"meshes": list(SHARD_COUNTS)}
     sharded["rejection"], rej_counts, q_counts, descents, leaf, mesh2 = \
         run_sharded_rejection(sampler, main_out)

@@ -1,7 +1,18 @@
-"""Core NDPP math of the port: types, Youla, the proposal tree, the
-speculative rejection sampler, the dynamic-catalog proposal and the MCMC
-chains, each unsharded or item-sharded over a mesh."""
+"""Core NDPP math of the port: types, Youla, the linear-time Cholesky
+sampler, the proposal tree, the rejection samplers (sequential and
+speculative), the fixed-size k-NDPP sampler, the dynamic-catalog proposal
+and the MCMC chains, the tree-based ones unsharded or item-sharded over a
+mesh."""
 from .bilinear import bilinear_scores, bilinear_scores_fast  # noqa: F401
+from .cholesky import (  # noqa: F401
+    marginal_inner,
+    marginal_inner_from_params,
+    sample_cholesky,
+    sample_cholesky_blocked,
+    sample_cholesky_inner,
+    sample_cholesky_params,
+    sample_cholesky_spectral,
+)
 from .dynamic import (  # noqa: F401
     DualProposal,
     auto_n_spec_dynamic,
@@ -11,6 +22,13 @@ from .dynamic import (  # noqa: F401
     expected_trials_dynamic,
     sample_dynamic_many,
     update_proposal,
+)
+from .kdpp import (  # noqa: F401
+    elementary_symmetric,
+    elementary_symmetric_log,
+    sample_fixed_size_e,
+    sample_k_ndpp,
+    sample_kdpp,
 )
 from .mcmc import (  # noqa: F401
     MCMCSample,
@@ -36,6 +54,9 @@ from .rejection import (  # noqa: F401
     log_det_ratio,
     log_det_ratio_batch,
     preprocess,
+    sample,
+    sample_batch,
+    sample_batched,
     sample_batched_many,
     shard_sampler,
 )
@@ -46,8 +67,11 @@ from .tree import (  # noqa: F401
     dual_q0,
     gather_tree,
     proposal_eigens,
+    sample_elementary,
     sample_elementary_batch,
     sample_elementary_batch_sharded,
+    sample_elementary_dense,
+    sample_proposal_dpp,
     sample_proposal_dpp_batch,
     sample_proposal_dpp_batch_sharded,
     shard_spectral,

@@ -1,5 +1,5 @@
 """Rejection NDPP sampling (Section 4, Algorithm 2); port of
-``repro/core/rejection.py``, speculative path only.
+``repro/core/rejection.py``.
 
 Target:   Pr_L(Y)    ∝ det(L_Y),      L    = Z X Z^T (nonsymmetric)
 Proposal: Pr_Lhat(Y) ∝ det(Lhat_Y),   Lhat = Z Xhat Z^T (symmetric PSD)
@@ -14,7 +14,10 @@ proposals to one batched tree traversal and one batched log-det ratio, and
 retires at its first acceptance.  Proposal t of a request is always keyed
 ``fold_in(request_key, t)``, so draws, trial counts and accept flags do not
 depend on how proposals were batched — they equal the reference's, key for
-key.
+key.  The observed driver ``drive_rounds`` grows the round width after a
+missed round and reports each round and retirement to a duck-typed
+observer; the sequential ``sample`` / ``sample_batch`` run trial t of every
+pending request as one batched round.
 
 Item-axis sharding (``shard_sampler``, ``sample_batched_many(mesh=)``):
 the tree's deep levels and W and the Z rows live split over a mesh, and
@@ -25,10 +28,12 @@ equal the unsharded sampler's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import random as trandom
@@ -43,6 +48,9 @@ from .tree import (
     shard_tree,
 )
 from .types import SpectralNDPP
+
+#: shared no-op context for drivers whose observer has no ``phase`` hook
+_NO_PHASE = contextlib.nullcontext()
 
 
 class RejectionSample(NamedTuple):
@@ -151,6 +159,62 @@ def det_ratio_exact(sp: SpectralNDPP) -> torch.Tensor:
     return torch.exp(ld_h - ld_l)
 
 
+def _sample_lanes(sampler: NDPPSampler, keys: torch.Tensor,
+                  propose: Callable, max_trials: int) -> RejectionSample:
+    """The sequential SAMPLEREJECT loop of N requests (keys (N, 2)) at once:
+    trial t of every request is one batched round, ``kk, k_prop, k_acc =
+    split(kk, 3)`` then ``propose(k_prop)`` -> (items, mask) (N, R), one
+    batched log-det ratio and ``log(uniform(k_acc)) <= log_ratio``.  A
+    retired request rides along masked: its result stays as it was.  The
+    host reads one flag a round: whether every request has accepted.  A
+    request that exhausts ``max_trials`` returns its last proposal with
+    ``accepted=False``."""
+    n, r = keys.shape[0], sampler.tree.R
+    dev = keys.device
+    items = torch.full((n, r), -1, dtype=torch.int64, device=dev)
+    mask = torch.zeros((n, r), dtype=torch.bool, device=dev)
+    trials = torch.zeros(n, dtype=torch.int64, device=dev)
+    accepted = torch.zeros(n, dtype=torch.bool, device=dev)
+    kk = keys
+    for _ in range(max_trials):
+        ks = trandom.split(kk, 3)                                 # (N, 3, 2)
+        kk = ks[:, 0]
+        it, mk = propose(ks[:, 1])
+        log_ratio, _ = log_det_ratio_batch(sampler.sp, it, mk)
+        accept = torch.log(trandom.uniform(ks[:, 2])) <= log_ratio
+        pend = ~accepted
+        items = torch.where(pend[:, None], it, items)
+        mask = torch.where(pend[:, None], mk, mask)
+        trials = trials + pend.long()
+        accepted = accepted | (pend & accept)
+        if bool(accepted.all()):
+            break
+    return RejectionSample(items=items, mask=mask, trials=trials,
+                           accepted=accepted)
+
+
+def _proposals(sampler: NDPPSampler) -> Callable:
+    return lambda ks: sample_proposal_dpp_batch(sampler.tree, ks)
+
+
+def sample(sampler: NDPPSampler, key, max_trials: int = 1000
+           ) -> RejectionSample:
+    """SAMPLEREJECT of Algorithm 2 for one key (2,): draw from DPP(Lhat)
+    through the tree, accept with probability det(L_Y)/det(Lhat_Y), until
+    an acceptance or ``max_trials`` proposals."""
+    key = trandom.as_key(key, sampler.device)
+    res = _sample_lanes(sampler, key[None], _proposals(sampler), max_trials)
+    return RejectionSample(*(x[0] for x in res))
+
+
+def sample_batch(sampler: NDPPSampler, key, n: int,
+                 max_trials: int = 1000) -> RejectionSample:
+    """``sample`` for each of ``split(key, n)``, as ``vmap(sample)``: the n
+    requests' trial t runs as one batched round.  Leading dim n."""
+    keys = trandom.split(trandom.as_key(key, sampler.device), n)
+    return _sample_lanes(sampler, keys, _proposals(sampler), max_trials)
+
+
 def _spec_round_impl(sampler: NDPPSampler, keys: torch.Tensor):
     """One speculative round: one proposal per key (N, 2) through the
     batched tree traversal, one batched log-det ratio, one acceptance coin
@@ -166,10 +230,12 @@ def _spec_round_impl(sampler: NDPPSampler, keys: torch.Tensor):
 def _fanout_traced(req_keys: torch.Tensor, starts: torch.Tensor,
                    offsets: torch.Tensor) -> torch.Tensor:
     """Key of proposal t of request i: fold_in(req_keys[i], starts[i] + t)
-    for t in ``offsets``.  Returns (P * S, 2), request-major."""
+    for t in ``offsets``.  Returns (P * S, 2), request-major.  The
+    reference's ``_fanout_keys`` too, which only jits this function."""
     data = starts[:, None] + offsets[None, :]                     # (P, S)
     keys = trandom.fold_in(req_keys[:, None, :], data)            # (P, S, 2)
     return keys.reshape(-1, 2)
+
 
 
 def _spec_round_fused(sampler: NDPPSampler, slot_keys: torch.Tensor,
@@ -203,10 +269,25 @@ def auto_n_spec(sampler: NDPPSampler, max_spec: int = 64) -> int:
         math.log2(max(1.0, expect)))))))
 
 
+def sample_batched(
+    sampler: NDPPSampler, key, n_spec: Optional[int] = None,
+    max_trials: int = 1000, grow: int = 2, max_spec: int = 64, mesh=None,
+) -> RejectionSample:
+    """Speculative SAMPLEREJECT for one request key (2,): each round draws
+    ``n_spec`` proposals at once and accepts the first success.  The same
+    draw as ``sample`` with the same key schedule as
+    ``sample_batched_many`` (row 0 of it on ``key[None]``)."""
+    res = sample_batched_many(
+        sampler, trandom.as_key(key)[None], n_spec=n_spec,
+        max_trials=max_trials, grow=grow, max_spec=max_spec,
+        split_keys=False, mesh=mesh)
+    return RejectionSample(*(x[0] for x in res))
+
+
 def sample_batched_many(
     sampler: NDPPSampler, key, n: Optional[int] = None,
-    n_spec: Optional[int] = None, max_trials: int = 1000, max_spec: int = 64,
-    split_keys: bool = True, mesh=None, observer=None,
+    n_spec: Optional[int] = None, max_trials: int = 1000, grow: int = 2,
+    max_spec: int = 64, split_keys: bool = True, mesh=None, observer=None,
 ) -> RejectionSample:
     """Speculative rejection sampling for many requests sharing each round.
 
@@ -217,16 +298,15 @@ def sample_batched_many(
     on the reference's default path.  ``mesh``: run every round
     item-sharded over the mesh "model" axis (``shard_sampler``, then the
     same rounds; pass its output to place the arrays once); the results
-    equal the unsharded path's.  Returns a stacked RejectionSample with
-    leading dim n, on the sampler's (first) device.
+    equal the unsharded path's.  ``observer``: a duck-typed telemetry sink
+    (see ``drive_rounds``), which runs the rounds through the observed
+    driver instead, with the round width multiplied by ``grow`` (capped at
+    ``max_spec``) after a missed round; the results are the same.
+    Returns a stacked RejectionSample with leading dim n, on the sampler's
+    (first) device.
     """
     if mesh is not None:
         sampler = shard_sampler(sampler, mesh)
-    if observer is not None:
-        raise NotImplementedError(
-            "observer= needs the reference's observed drive_rounds driver, "
-            "which the port does not have yet (ROADMAP, Queue 1: "
-            "observability)")
     dev = sampler.device
     if n_spec is None:
         n_spec = auto_n_spec(sampler, max_spec)
@@ -237,9 +317,16 @@ def sample_batched_many(
         req_keys = trandom.split(key, n)
     else:
         req_keys = key
-    return _drive_rounds_fused(
-        lambda keys: _spec_round_impl(sampler, keys), req_keys,
-        sampler.tree.R, n_spec=n_spec, max_trials=max_trials)
+
+    def round_fn(keys):
+        return _spec_round_impl(sampler, keys)
+
+    if observer is None:
+        return _drive_rounds_fused(round_fn, req_keys, sampler.tree.R,
+                                   n_spec=n_spec, max_trials=max_trials)
+    return drive_rounds(round_fn, req_keys, sampler.tree.R, n_spec=n_spec,
+                        max_trials=max_trials, grow=grow, max_spec=max_spec,
+                        observer=observer)
 
 
 def _drive_rounds_fused(round_fn: Callable, req_keys: torch.Tensor, r: int,
@@ -295,3 +382,86 @@ def _drive_rounds_fused(round_fn: Callable, req_keys: torch.Tensor, r: int,
                          torch.full_like(trials, max_trials))
     return RejectionSample(items=items, mask=mask, trials=trials,
                            accepted=accepted)
+
+
+def drive_rounds(round_fn: Callable, req_keys: torch.Tensor, r: int, *,
+                 n_spec: int, max_trials: int = 1000, grow: int = 2,
+                 max_spec: int = 64, observer=None) -> RejectionSample:
+    """The reference's observed speculative-round driver: a host loop over
+    the still-pending requests, padded to a power of two, whose round
+    width starts at ``n_spec`` and is multiplied by ``grow`` (capped at
+    ``max_spec``) after each round.  ``round_fn(keys)`` scores one
+    proposal per (P, 2) key and returns (items, mask, accept).  Proposal t
+    of request i is keyed ``fold_in(req_keys[i], t)``, so the results equal
+    ``_drive_rounds_fused``'s under any schedule.
+
+    ``observer``: optional duck-typed sink.  After each round's one
+    device-to-host read it gets ``on_round(n_active=, n_spec=, proposals=,
+    accepts=)`` and one ``on_retire(trials=, accepted=)`` per request
+    leaving the pending set, all plain host ints; an optional
+    ``phase(name)`` context manager names the "round_dispatch" and
+    "harvest" ranges.  Observation adds no sync and cannot change a draw.
+    """
+    phase = getattr(observer, "phase", None) or (lambda name: _NO_PHASE)
+    n = req_keys.shape[0]
+    dev = req_keys.device
+    items_out = np.full((n, r), -1, np.int64)
+    mask_out = np.zeros((n, r), bool)
+    trials_out = np.zeros((n,), np.int64)
+    acc_out = np.zeros((n,), bool)
+
+    active = np.arange(n)
+    spent = 0                      # the same for every pending request
+    cur = int(n_spec)
+    while active.size:
+        cur = min(cur, max_spec)
+        # budget truncation by masking: the round keeps its width and only
+        # the first ``usable`` lanes (offsets [spent, spent + usable)) count
+        usable = min(cur, max_trials - spent)
+        n_act = int(active.size)
+        n_pad = 1 << max(0, n_act - 1).bit_length()
+        # pad with repeats of the first request; their results are dropped
+        rows = np.concatenate([active, np.full(n_pad - n_act, active[0])])
+        act_keys = req_keys[torch.as_tensor(rows, device=dev)]
+        with phase("round_dispatch"):
+            keys = _fanout_traced(
+                act_keys, torch.full((n_pad,), spent, dtype=torch.int64,
+                                     device=dev),
+                torch.arange(cur, dtype=torch.int64, device=dev))
+            items, mask, accept = round_fn(keys)
+        with phase("harvest"):
+            items_h, mask_h, acc = (x.cpu().numpy()
+                                    for x in (items, mask, accept))
+        acc = acc.reshape(n_pad, cur)[:n_act, :usable]
+        items_h = items_h.reshape(n_pad, cur, r)[:n_act]
+        mask_h = mask_h.reshape(n_pad, cur, r)[:n_act]
+
+        any_acc = acc.any(axis=1)
+        first = acc.argmax(axis=1)
+        hit = active[any_acc]
+        items_out[hit] = items_h[any_acc, first[any_acc]]
+        mask_out[hit] = mask_h[any_acc, first[any_acc]]
+        trials_out[hit] = spent + first[any_acc] + 1
+        acc_out[hit] = True
+        if observer is not None:
+            observer.on_round(n_active=n_act, n_spec=usable,
+                              proposals=n_act * usable, accepts=int(acc.sum()))
+            for t in trials_out[hit]:
+                observer.on_retire(trials=int(t), accepted=True)
+
+        spent += usable
+        miss = ~any_acc
+        if spent >= max_trials:    # exhausted: the last in-budget proposal
+            left = active[miss]
+            items_out[left] = items_h[miss, usable - 1]
+            mask_out[left] = mask_h[miss, usable - 1]
+            trials_out[left] = spent
+            if observer is not None:
+                for _ in left:
+                    observer.on_retire(trials=spent, accepted=False)
+            break
+        active = active[miss]
+        cur *= grow
+
+    return RejectionSample(*(torch.as_tensor(a, device=dev) for a in
+                             (items_out, mask_out, trials_out, acc_out)))

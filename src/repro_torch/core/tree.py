@@ -505,3 +505,61 @@ def sample_elementary_batch_sharded(tree: AnyTree, e_masks: torch.Tensor,
     return sample_elementary_batch(shard_tree(tree, mesh),
                                    e_masks.to(mesh.device),
                                    keys.to(mesh.device))
+
+
+# --------------------------------------------------------------------------
+# One draw at a time.  A single elementary or proposal draw is the batched
+# draw of one lane: the key schedule is the same (step t of a draw uses
+# ``split(split(key, R)[t])``), so it runs ``descend_score`` on the card
+# and equals the reference's single-draw descent on the same tree and key
+# (up to decisions the two descents round differently: near ties).
+# --------------------------------------------------------------------------
+
+
+def sample_elementary(tree: AnyTree, e_mask: torch.Tensor, key
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One draw from the elementary DPP with marginal kernel W_E W_E^T:
+    e_mask (R,) the eigenvectors E, key (2,).  Returns (items, mask), each
+    (R,); items are -1 past |E|.  Row 0 of ``sample_elementary_batch``."""
+    key = trandom.as_key(key, tree.device)
+    items, mask = sample_elementary_batch(tree, e_mask[None], key[None])
+    return items[0], mask[0]
+
+
+def sample_proposal_dpp(tree: AnyTree, key
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One draw Y ~ DPP(Lhat): eigenvector coins with probability
+    lam/(lam+1), then the elementary draw through the tree.  Row 0 of
+    ``sample_proposal_dpp_batch``."""
+    key = trandom.as_key(key, tree.device)
+    items, mask = sample_proposal_dpp_batch(tree, key[None])
+    return items[0], mask[0]
+
+
+def _leaf_scores(w_blk: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Raw scores z_b^T Q z_b of rows (B, R) against one projector (R, R)
+    -> (B,), through the ``bilinear`` kernel (its plain version on the
+    CPU)."""
+    return bilinear_ops.bilinear(w_blk.contiguous(), q.contiguous())
+
+
+def sample_elementary_dense(W: torch.Tensor, e_mask: torch.Tensor, key
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The O(M k R) oracle: the distribution of ``sample_elementary``
+    without a tree, scoring every row of W (M, R) at each step
+    (``_leaf_scores`` over all rows).  Step t draws its item by
+    ``categorical(split(key, R)[t], log(scores + 1e-30))``, then downdates
+    Q by the chosen row.  Returns (items, mask), each (R,)."""
+    m, r = W.shape
+    keys = trandom.split(trandom.as_key(key, W.device), r)
+    q = torch.diag(e_mask.to(W.dtype))
+    items = torch.full((r,), -1, dtype=torch.int64, device=W.device)
+    for t in range(int(e_mask.sum())):
+        scores = _leaf_scores(W, q).clamp_min(0.0)
+        j = trandom.categorical(keys[t], torch.log(scores + 1e-30))
+        w_j = W[j]
+        qw = q @ w_j
+        p = (w_j @ qw).clamp_min(1e-30)
+        q = q - torch.outer(qw, qw) / p
+        items[t] = j
+    return items, items >= 0

@@ -5,7 +5,11 @@ no CPU mode) and run on the H100 with ``pytest -m gpu tests/test_torch_gpu.py``.
 Tolerances: the kernels sum in float32 in another order than cuBLAS /
 PyTorch's reductions, so values agree to rtol 1e-5 (Gram) and 1e-4 of the
 largest score (descent, all-candidate scores, quadratic forms); block ids
-on these well-separated random inputs must be equal.  The gathered Grams
+on these well-separated random inputs must be equal.  The Cholesky scan's
+decisions are held up to each draw's first flip, which must fall where
+|u - p_plain| is within the limit 1e-4 |p_plain| + 1e-6 max|p_plain|, with
+|p - p_plain| within it before the flip (``flip_gaps``); the rule refuses
+the plain scan with a planted fault.  The gathered Grams
 share the full build's contraction and must be bit-equal to it;
 ``bilinear_batched`` shares ``descend_score``'s leaf stage and must be
 bit-equal to its raw scores; the sharded scorers must be bit-equal to one
@@ -28,6 +32,14 @@ from repro_torch.core import (
     shard_sampler,
 )
 from repro_torch.core.rejection import NDPPSampler
+from repro_torch.kernels.cholesky_scan import ops as scan_ops
+from repro_torch.kernels.cholesky_scan.ref import (
+    FAULTS,
+    cholesky_scan_ref,
+    flip_gaps,
+    planted_scan,
+    random_inputs,
+)
 from repro_torch.kernels.spec_round import ops as spec_ops
 from repro_torch.kernels.spec_round.ref import descend_score_ref
 from repro_torch.core.dynamic import dual_rows
@@ -1019,3 +1031,143 @@ def test_mamba_train_step_on_card_matches_cpu(cuda):
     for k, ref in grads["cpu"].items():
         err = float((grads["cuda"][k] - ref).abs().max())
         assert err <= 1e-3 * float(ref.abs().max()) + 1e-12, (k, err)
+
+
+# ------------------------------------------------- the Cholesky scan kernel
+_SCAN_CASES = ([(257, r, 3) for r in (1, 8, 33, 200, 224)]
+               + [(m, 200, 5) for m in (1, 63, 64, 65, 4097)]
+               + [(300, 64, n) for n in (1, 131, 132, 133, 300)])
+
+
+def _scan_inputs(cuda, m, r, n, seed, zero_rows=()):
+    """``ref.random_inputs``: rows of a random NDPP scaled to marginals of
+    O(0.1), its inner matrix, uniforms; rows in ``zero_rows`` are zero."""
+    return random_inputs(m, r, n, seed, cuda, zero_rows=zero_rows)
+
+
+@pytest.mark.parametrize("m,r,n", _SCAN_CASES)
+def test_cholesky_scan_kernel(cuda, m, r, n):
+    """One launch; decisions equal the plain version's up to each draw's
+    first flip, a flip only where u is within the flip rule's limit of the
+    plain p, p within it before the flip; two calls give the same bits."""
+    z, w, u = _scan_inputs(cuda, m, r, n, seed=m * 1000 + r + n)
+    before = scan_ops.launches
+    take, p = scan_ops.cholesky_scan(z, w, u)
+    torch.cuda.synchronize()
+    assert scan_ops.launches == before + 1
+    assert take.dtype == torch.bool and take.shape == (n, m) == p.shape
+    gaps = flip_gaps(take, p, *cholesky_scan_ref(z, w, u), u)
+    assert gaps["within"], gaps
+    again = scan_ops.cholesky_scan(z, w, u)
+    assert torch.equal(take, again[0]) and torch.equal(p, again[1])
+
+
+def test_cholesky_scan_never_takes_zero_rows(cuda):
+    """A zero row has p = 0 and is never taken, at u = 0 too (strict <),
+    while u = 0 takes every row whose p is positive."""
+    zero = (0, 5, 6, 100, 1023)
+    z, w, u = _scan_inputs(cuda, 1024, 200, 133, seed=7, zero_rows=zero)
+    u[:, list(zero)] = 0.0
+    u[:, 7] = 0.0
+    take, p = scan_ops.cholesky_scan(z, w, u)
+    want_take, want_p = cholesky_scan_ref(z, w, u)
+    assert not bool(take[:, list(zero)].any())
+    assert bool((p[:, list(zero)] == 0).all())
+    assert torch.equal(take[:, :8], want_take[:, :8])
+    assert bool(take[:, 7].all())
+    gaps = flip_gaps(take, p, want_take, want_p, u)
+    assert gaps["within"], gaps
+
+
+@pytest.mark.parametrize("fault", FAULTS)
+def test_cholesky_scan_rule_refuses_planted_fault(cuda, fault):
+    """On the card's inputs at R = 200 with marginals of O(0.1), the flip
+    rule passes the kernel and refuses the plain scan with a fault planted
+    (all zeros, the downdate skipped, the denominator's sign flipped)."""
+    z, w, u = _scan_inputs(cuda, 1024, 200, 132, seed=11)
+    take_r, p_r = cholesky_scan_ref(z, w, u)
+    sound = flip_gaps(*scan_ops.cholesky_scan(z, w, u), take_r, p_r, u)
+    assert sound["within"] and sound["compared_takes"] > 132 * 10, sound
+    bad = flip_gaps(*planted_scan(z, w, u, fault), take_r, p_r, u)
+    assert not bad["within"], bad
+
+
+def test_cholesky_scan_refuses_wide_r(cuda):
+    r = scan_ops.MAX_R + 1
+    assert scan_ops.route(scan_ops.MAX_R) == "resident"
+    with pytest.raises(ValueError, match="R <= 224"):
+        scan_ops.cholesky_scan(torch.zeros((4, r), device=cuda),
+                               torch.zeros((r, r), device=cuda),
+                               torch.zeros((2, 4), device=cuda))
+
+
+def _golden_samplers(cuda):
+    """The reference's golden kernel (M=256, K=4), preprocessed on the CPU,
+    and the same state on the card."""
+    rng = np.random.default_rng(31415)
+    v = (rng.normal(size=(256, 4)) * 0.1).astype(np.float32)
+    b = (rng.normal(size=(256, 4)) * 0.1).astype(np.float32)
+    d = rng.normal(size=(4, 4)).astype(np.float32)
+    cpu = preprocess(v, b, d, block=4, device="cpu")
+    card = NDPPSampler(
+        sp=SpectralNDPP(Z=cpu.sp.Z.to(cuda), sigma=cpu.sp.sigma.to(cuda)),
+        tree=dataclasses.replace(cpu.tree, W=cpu.tree.W.to(cuda),
+                                 lam=cpu.tree.lam.to(cuda),
+                                 nodes=cpu.tree.nodes.to(cuda)))
+    return cpu, card
+
+
+def test_cholesky_samplers_on_card_match_cpu(cuda):
+    """Every Cholesky entry point on the card, one scan launch a call, for
+    one key and for a stack of keys, equal to the CPU draws."""
+    from repro_torch.core import (
+        sample_cholesky_blocked,
+        sample_cholesky_spectral,
+        x_from_sigma,
+    )
+
+    cpu, card = _golden_samplers(cuda)
+    keys = trandom.split(trandom.PRNGKey(1), 8)
+    x = x_from_sigma(cpu.sp.K, cpu.sp.sigma)
+    calls = [
+        lambda s, k: sample_cholesky_spectral(s.sp, k),
+        lambda s, k: sample_cholesky_blocked(s.sp.Z, x.to(s.sp.Z.device), k,
+                                             block=64),
+    ]
+    for call in calls:
+        for k in (keys, keys[3]):
+            before = scan_ops.launches
+            got = call(card, k.to(cuda))
+            assert scan_ops.launches == before + 1
+            assert torch.equal(got.cpu(), call(cpu, k))
+
+
+def test_samplers_on_kernel_1_and_6_match_cpu(cuda):
+    """``sample``, ``sample_batch`` and ``sample_k_ndpp`` descend through
+    ``descend_score`` (one launch an elementary step), and
+    ``sample_elementary_dense`` scores through ``bilinear`` (one launch a
+    step); each equals its CPU draw."""
+    from repro_torch.core import (
+        sample,
+        sample_batch,
+        sample_elementary_dense,
+        sample_k_ndpp,
+    )
+
+    cpu, card = _golden_samplers(cuda)
+    for call in (lambda s: sample(s, trandom.PRNGKey(4)),
+                 lambda s: sample_batch(s, trandom.PRNGKey(9), 8),
+                 lambda s: sample_k_ndpp(s, 3, trandom.PRNGKey(6))):
+        before = spec_ops.launches
+        got = call(card)
+        assert spec_ops.launches > before
+        want = call(cpu)
+        for name in ("items", "mask", "trials", "accepted"):
+            assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+    e_mask = cpu.tree.lam > cpu.tree.lam.median()
+    before = bilinear_ops.launches
+    items, _ = sample_elementary_dense(card.tree.W, e_mask.to(cuda),
+                                       trandom.PRNGKey(2))
+    assert bilinear_ops.launches - before == int(e_mask.sum())
+    want, _ = sample_elementary_dense(cpu.tree.W, e_mask, trandom.PRNGKey(2))
+    assert torch.equal(items.cpu(), want)

@@ -7,6 +7,7 @@ trial counts and accept flags — both live and as pinned in
 the exact NDPP distribution (chi-square against enumeration, as
 ``tests/test_batched_sampler.py``) at Theorem 2's trial rate.
 """
+import contextlib
 import json
 import pathlib
 
@@ -21,6 +22,7 @@ from _torch_port import golden_key_layout, port_sampler
 from repro.core import init_ondpp
 from repro.core import preprocess as jax_preprocess
 from repro.core import sample_batched_many as jax_sample_batched_many
+from repro.core import rejection as jax_rejection
 from repro.core.rejection import det_ratio_exact as jax_det_ratio_exact
 from repro.core.rejection import log_det_ratio_batch as jax_log_det_ratio_batch
 from repro_torch import random as trandom
@@ -34,10 +36,14 @@ from repro_torch.core import (
     log_det_ratio_batch,
     preprocess,
     proposal_eigens,
+    sample,
+    sample_batch,
+    sample_batched,
     sample_batched_many,
     spectral_from_params,
 )
-from repro_torch.core.rejection import NDPPSampler
+from repro_torch.core.rejection import NDPPSampler, drive_rounds
+from repro_torch.core.rejection import _spec_round_impl as _spec_round
 
 GOLDEN = pathlib.Path(__file__).parent / "golden" / "rejection.json"
 
@@ -133,8 +139,109 @@ def test_unported_options_raise(golden_samplers):
     # reference's configuration error
     with pytest.raises(ValueError, match="'model' axis"):
         sample_batched_many(got, trandom.PRNGKey(0), 2, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # observer= is ported: an observer is duck-typed, and one without
+    # ``on_round`` fails where the reference's does
+    with pytest.raises(AttributeError, match="on_round"):
         sample_batched_many(got, trandom.PRNGKey(0), 2, observer=object())
+
+
+def fields_equal(port, ref):
+    for name in ("items", "mask", "trials", "accepted"):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(port, name)), np.asarray(getattr(ref, name)),
+            err_msg=name)
+
+
+@pytest.mark.parametrize("seed,max_trials", [(4, 1000), (4, 2), (13, 1000),
+                                             (2, 1)])
+def test_sequential_sample_matches_reference(golden_samplers, seed,
+                                             max_trials):
+    """``sample`` (the reference's while loop over one request), exhausted
+    budgets included."""
+    ref, got = golden_samplers
+    with golden_key_layout():
+        fields_equal(sample(got, trandom.PRNGKey(seed), max_trials),
+                     jax_rejection.sample(ref, jax.random.PRNGKey(seed),
+                                          max_trials))
+
+
+@pytest.mark.parametrize("n,max_trials", [(16, 1000), (16, 3), (1, 1000)])
+def test_sample_batch_matches_reference(golden_samplers, n, max_trials):
+    """``sample_batch`` equals ``vmap(sample)`` over ``split(key, n)``."""
+    ref, got = golden_samplers
+    with golden_key_layout():
+        fields_equal(
+            sample_batch(got, trandom.PRNGKey(9), n, max_trials),
+            jax_rejection.sample_batch(ref, jax.random.PRNGKey(9), n,
+                                       max_trials))
+
+
+@pytest.mark.parametrize("n_spec,grow,max_trials", [(None, 2, 1000),
+                                                    (2, 2, 5), (1, 3, 1000)])
+def test_sample_batched_matches_reference(golden_samplers, n_spec, grow,
+                                          max_trials):
+    ref, got = golden_samplers
+    with golden_key_layout():
+        for seed in (11, 12):
+            fields_equal(
+                sample_batched(got, trandom.PRNGKey(seed), n_spec=n_spec,
+                               max_trials=max_trials, grow=grow),
+                jax_rejection.sample_batched(
+                    ref, jax.random.PRNGKey(seed), n_spec=n_spec,
+                    max_trials=max_trials, grow=grow))
+
+
+class RecordingObserver:
+    """Every call of the observed driver's hooks, in order."""
+
+    def __init__(self):
+        self.calls = []
+
+    def on_round(self, **kw):
+        self.calls.append(("round", kw))
+
+    def on_retire(self, **kw):
+        self.calls.append(("retire", kw))
+
+    def phase(self, name):
+        self.calls.append(("phase", name))
+        return contextlib.nullcontext()
+
+
+@pytest.mark.parametrize("n_spec,grow,max_spec,max_trials",
+                         [(2, 2, 64, 1000), (1, 3, 4, 1000), (4, 2, 64, 6),
+                          (2, 1, 2, 3)])
+def test_observed_driver_matches_reference(golden_samplers, n_spec, grow,
+                                           max_spec, max_trials):
+    """``sample_batched_many(observer=)`` runs ``drive_rounds``: results
+    equal the fused path's per rid and the reference's observed path's,
+    and the hooks get the reference's calls in the reference's order."""
+    ref, got = golden_samplers
+    kw = dict(n_spec=n_spec, max_trials=max_trials)
+    with golden_key_layout():
+        want_obs, port_obs = RecordingObserver(), RecordingObserver()
+        want = jax_sample_batched_many(
+            ref, jax.random.PRNGKey(0), 24, grow=grow, max_spec=max_spec,
+            observer=want_obs, **kw)
+        port = sample_batched_many(
+            got, trandom.PRNGKey(0), 24, grow=grow, max_spec=max_spec,
+            observer=port_obs, **kw)
+        fused = sample_batched_many(got, trandom.PRNGKey(0), 24, **kw)
+    fields_equal(port, want)
+    fields_equal(port, fused)
+    assert port_obs.calls == want_obs.calls
+    assert sum(c[0] == "retire" for c in port_obs.calls) == 24
+
+
+def test_drive_rounds_without_observer_equals_fused(golden_samplers):
+    """``drive_rounds`` called directly, no observer: the fused path's
+    results for the same request keys."""
+    _, got = golden_samplers
+    req_keys = trandom.split(trandom.PRNGKey(8), 10)
+    res = drive_rounds(lambda k: _spec_round(got, k), req_keys, got.tree.R,
+                       n_spec=2, max_trials=50)
+    fields_equal(res, sample_batched_many(got, req_keys, n_spec=2,
+                                          max_trials=50, split_keys=False))
 
 
 M_EXACT, K_EXACT, N_SAMPLES = 8, 4, 8000

@@ -135,6 +135,56 @@ def test_sample_proposal_dpp_batch_matches_reference(samplers):
     np.testing.assert_array_equal(items.numpy(), np.asarray(items_ref))
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sample_elementary_matches_reference(samplers, seed):
+    """The single draw equals the reference's (its own descent, which
+    re-reads each parent) and row 0 of the batched draw on the same key."""
+    ref, got = samplers
+    r = got.tree.R
+    e_mask = np.random.default_rng(seed).uniform(size=r) < 0.6
+    with golden_key_layout():
+        key = jax.random.PRNGKey(40 + seed)
+        items_ref, mask_ref = jax_tree.sample_elementary(
+            ref.tree, jnp.asarray(e_mask), key)
+        items, mask = tree.sample_elementary(
+            got.tree, torch.as_tensor(e_mask), trandom.as_key(key))
+        batch, _ = tree.sample_elementary_batch(
+            got.tree, torch.as_tensor(e_mask)[None], trandom.as_key(key)[None])
+    np.testing.assert_array_equal(items.numpy(), np.asarray(items_ref))
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(mask_ref))
+    np.testing.assert_array_equal(items.numpy(), batch[0].numpy())
+
+
+def test_sample_proposal_dpp_matches_reference(samplers):
+    ref, got = samplers
+    with golden_key_layout():
+        for seed in range(6):
+            items_ref, _ = jax_tree.sample_proposal_dpp(
+                ref.tree, jax.random.PRNGKey(seed))
+            items, _ = tree.sample_proposal_dpp(got.tree,
+                                                trandom.PRNGKey(seed))
+            np.testing.assert_array_equal(items.numpy(),
+                                          np.asarray(items_ref))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sample_elementary_dense_matches_reference(samplers, seed):
+    """The treeless oracle on the reference's eigenvector rows (scores
+    through ``bilinear``'s plain version on the CPU): the same items."""
+    ref, got = samplers
+    r = got.tree.R
+    e_mask = np.random.default_rng(10 + seed).uniform(size=r) < 0.6
+    with golden_key_layout():
+        key = jax.random.PRNGKey(50 + seed)
+        items_ref, mask_ref = jax_tree.sample_elementary_dense(
+            ref.tree.W[:M], jnp.asarray(e_mask), key)
+        items, mask = tree.sample_elementary_dense(
+            got.tree.W[:M], torch.as_tensor(e_mask), trandom.as_key(key))
+    np.testing.assert_array_equal(items.numpy(), np.asarray(items_ref))
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(mask_ref))
+    assert int(mask.sum()) == int(e_mask.sum())
+
+
 def test_spectral_types_match_reference():
     sigma = np.array([0.5, 2.0], np.float32)
     sp = SpectralNDPP(Z=torch.zeros(3, 8), sigma=torch.as_tensor(sigma))
