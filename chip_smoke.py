@@ -89,13 +89,17 @@ kernel against its plain PyTorch version on the card:
    step and a seeded dy; planted faults must fail the attention and SSD
    per-row tolerances), with times, bounds and launch counts by path ->
    one ``{"kernels": [...]}`` line of eleven entries.  The
-   ``cholesky_scan`` entry is timed at the wave's full M and held to its
-   plain version by the flip rule (decisions equal up to each draw's
-   first flip; p within 1e-4 of the plain p relative, plus 1e-6 of the
-   largest, before it, and u that close to the plain p at it) on the
-   first 2^14 rows and on 1,024 seeded rows whose marginals are O(0.1);
-   on both, the rule must refuse the plain scan with each planted fault
-   (all zeros, the downdate skipped, the denominator's sign flipped).  The ``descend_score
+   ``cholesky_scan`` entry is timed at the wave's full M on its route
+   (``ops.route``: "blocked" at R = 200) and, on the same inputs, on the
+   "resident" route (one item at a time), with its bound at float32 FMA and
+   at the TF32 tensor-core rate; it is held to its plain version by the
+   flip rule (decisions equal up to each draw's first flip; p within 1e-4
+   of the plain p relative, plus 1e-6 of the largest, before it, and u
+   that close to the plain p at it) on the first 2^14 rows and on 1,024
+   seeded rows whose marginals are O(0.1) (there on both routes); on
+   both, the rule must refuse the plain scan with each planted fault (all
+   zeros, the downdate skipped, the denominator's sign flipped, the
+   blocked form's rejected pivot left at p).  The ``descend_score
    entry adds its device time from a profiler trace taken right after the
    build on seeded inputs at the main path's shape, the lanes' cluster
    size and how many such clusters the card holds, and two calls equal.  The two flash entries
@@ -164,6 +168,7 @@ KERNEL_SOURCES = ("tree_sum", "spec_round", "mcmc_score", "bilinear",
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM data sheet, fp32 outside tensor cores
 BF16_FLOP_PER_S = 989e12   # H100 SXM data sheet, dense bf16 tensor cores
+TF32_FLOP_PER_S = 495e12   # H100 SXM data sheet, dense TF32 tensor cores
 
 
 class SmokeFailure(RuntimeError):
@@ -325,12 +330,14 @@ def _count_owners():
 def _route_owners():
     """(kernel name, module, {route: attribute}) of every kernel whose
     launches are also counted by route: flash's (``attention/ops.py::
-    _route``), the quadratic form's (chosen by R in ``quad_form.cuh``) and
+    _route``), the quadratic form's (chosen by R in ``quad_form.cuh``),
     the SSD forward's and backward's (``ssd/ops.py::_fwd_route``,
-    ``_bwd_route``).  Each launch adds one to its route's count and to the
+    ``_bwd_route``) and the Cholesky scan's (``cholesky_scan/ops.py::
+    route``).  Each launch adds one to its route's count and to the
     kernel's total."""
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.bilinear import ops as bilinear_ops
+    from repro_torch.kernels.cholesky_scan import ops as scan_ops
     from repro_torch.kernels.mcmc_score import ops as mcmc_score_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
 
@@ -344,7 +351,10 @@ def _route_owners():
             ("ssd", ssd_ops,
              {"wgmma": "wgmma_fwd_launches", "simt": "simt_fwd_launches"}),
             ("ssd_bwd", ssd_ops,
-             {"wgmma": "wgmma_bwd_launches", "simt": "simt_bwd_launches"}))
+             {"wgmma": "wgmma_bwd_launches", "simt": "simt_bwd_launches"}),
+            ("cholesky_scan", scan_ops,
+             {"blocked": "blocked_launches",
+              "resident": "resident_launches"}))
 
 
 def reset_counts() -> None:
@@ -766,13 +776,15 @@ def run_cholesky(sampler):
     return launches, keys, x
 
 
-def _hold_scan(zs, W, us, take, p):
-    """``take, p`` of the kernel against the plain version by the flip rule
-    (``ref.flip_gaps``), and each planted fault of ``ref.FAULTS`` against
-    it too: the rule must refuse every one."""
+def _hold_scan(zs, W, us, take, p, plain=None):
+    """``take, p`` of the kernel against the plain version (``plain``, or
+    computed here) by the flip rule (``ref.flip_gaps``), and each planted
+    fault of ``ref.FAULTS`` against it too: the rule must refuse every
+    one."""
     from repro_torch.kernels.cholesky_scan import ref
 
-    take_r, p_r = ref.cholesky_scan_ref(zs, W, us)
+    take_r, p_r = plain if plain is not None else ref.cholesky_scan_ref(
+        zs, W, us)
     gaps = ref.flip_gaps(take, p, take_r, p_r, us)
     faults = {}
     for fault in ref.FAULTS:
@@ -787,13 +799,17 @@ def _hold_scan(zs, W, us, take, p):
 
 def check_cholesky_scan(sp, keys, x, launches):
     """The scan kernel on the main path's rows and inner matrix with the
-    wave's uniforms: timed at full M; held to its plain version by the flip
-    rule (``ref.flip_gaps``: decisions equal up to each draw's first flip,
-    |p - p_plain| <= RTOL |p_plain| + ATOL_FRAC max|p_plain| before it, a
-    flip only where |u - p_plain| is within that) on the first CHOL_PLAIN_M
-    rows, and on CHOL_DECIDE_M seeded rows with marginals of O(0.1) where
-    the draws take items; on both, the rule refuses each planted fault;
-    two calls equal, one launch a call."""
+    wave's uniforms: timed at full M on its route (``ops.route``) and, on
+    the same inputs, on the "resident" route; held to its plain version
+    by the flip rule (``ref.flip_gaps``: decisions equal up to each draw's
+    first flip, |p - p_plain| <= RTOL |p_plain| + ATOL_FRAC max|p_plain|
+    before it, a flip only where |u - p_plain| is within that) on the first
+    CHOL_PLAIN_M rows, and on CHOL_DECIDE_M seeded rows with marginals of
+    O(0.1) where the draws take items (both routes there); on both, the
+    rule refuses each planted fault; two calls equal, one launch a call.
+    Two bounds for the same 6 R^2 M FLOP a draw: float32 FMA, and the
+    blocked route's three TF32 passes (3xTF32) on the tensor cores; the
+    entry's ``bound_ms`` is the route's."""
     import torch
     from repro_torch import random as trandom
     from repro_torch.core import marginal_inner
@@ -803,10 +819,17 @@ def check_cholesky_scan(sp, keys, x, launches):
     m, r = Z.shape
     W = marginal_inner(Z, x)
     n = keys.shape[0]
+    route = ops.route(r)
     u = trandom.uniform(keys, (m,))
     ms = cuda_ms(lambda: ops.cholesky_scan(Z, W, u), reps=1, warmup=0)
+    resident_ms = (cuda_ms(lambda: ops._launch("resident", Z, W, u), reps=1,
+                           warmup=0) if route != "resident" else ms)
     n_bytes = 4.0 * (m * r + r * r + n * m) + 5.0 * n * m
-    bms, by = bound(n_bytes, n * 6.0 * r * r * m)
+    n_flop = n * 6.0 * r * r * m
+    bound_fma, by_fma = bound(n_bytes, n_flop)
+    bound_tf32, by_tf32 = bound(n_bytes, 3 * n_flop, TF32_FLOP_PER_S)
+    bms, by = (bound_tf32, by_tf32) if route == "blocked" else (bound_fma,
+                                                                by_fma)
     zs = Z[:CHOL_PLAIN_M].contiguous()
     us = u[:, :CHOL_PLAIN_M].contiguous()
     del u
@@ -815,16 +838,27 @@ def check_cholesky_scan(sp, keys, x, launches):
     once = ops.launches - before
     again = ops.cholesky_scan(zs, W, us)
     deterministic = torch.equal(take, again[0]) and torch.equal(p, again[1])
-    gaps, faults = _hold_scan(zs, W, us, take, p)
+    plain = ref.cholesky_scan_ref(zs, W, us)
+    gaps, faults = _hold_scan(zs, W, us, take, p, plain)
+    # both against the same scan in float64: the float32 plain version's
+    # own rounding grows along the rows (2^14 sequential downdates)
+    take64, p64 = ref.cholesky_scan_ref(zs.double(), W.double(), us.double())
+    vs64 = {name: {k: g[k] for k in ("p_excess", "flip_excess", "max_p_gap")}
+            for name, g in (
+                ("kernel", ref.flip_gaps(take, p, take64, p64.float(), us)),
+                ("plain", ref.flip_gaps(*plain, take64, p64.float(), us)))}
+    del take64, p64, plain
     zd, wd, ud = ref.random_inputs(CHOL_DECIDE_M, r, n, SEED + 60_000,
                                    DEVICE)
     decide, decide_faults = _hold_scan(zd, wd, ud,
                                        *ops.cholesky_scan(zd, wd, ud))
+    resident = ref.flip_gaps(*ops._launch("resident", zd, wd, ud),
+                             *ref.cholesky_scan_ref(zd, wd, ud), ud)
     torch.cuda.synchronize()
     refused = all(f["refused"] for fs in (faults, decide_faults)
                   for f in fs.values())
-    ok = (gaps["within"] and decide["within"] and refused and deterministic
-          and once == 1)
+    ok = (gaps["within"] and decide["within"] and resident["within"]
+          and refused and deterministic and once == 1)
     ms_small = cuda_ms(lambda: ops.cholesky_scan(zs, W, us), reps=3)
     plain_ms = cuda_ms(lambda: ref.cholesky_scan_ref(zs, W, us), reps=1,
                        warmup=0)
@@ -834,8 +868,9 @@ def check_cholesky_scan(sp, keys, x, launches):
             "source": "src/repro_torch/csrc/cholesky_scan.cu",
             "replaces": "none: the port's own kernel for the lax.scan of "
                         "src/repro/core/cholesky.py:54 (sample_cholesky_inner)",
-            "design": ops.route(r),
+            "design": route,
             "launches": launches["cholesky_scan"],
+            "launches_by_route": by_route(launches, "cholesky_scan"),
             "max_abs_err": gaps["max_p_gap"],
             "tolerance": f"decisions equal up to each draw's first flip; "
                          f"before it |p - p_plain| <= {ref.RTOL} |p_plain| + "
@@ -846,15 +881,28 @@ def check_cholesky_scan(sp, keys, x, launches):
                          f"every planted fault refused; two calls equal; one "
                          f"launch a call",
             **{k: gaps[k] for k in held if k != "max_p_gap"},
+            "main_rows_against_float64": vs64,
             "decisions": {"shape": {"M": CHOL_DECIDE_M, "N": n, "R": r},
                           **{k: decide[k] for k in held}},
+            "resident_decisions": {k: resident[k] for k in
+                                   ("p_excess", "flip_excess", "within")},
             "planted_faults": {"main_rows": faults,
                                "decision_rows": decide_faults},
             "deterministic": deterministic, "launches_a_call": once,
             "ok": ok, "ms": ms, "ms_of": f"one call at M = {m}, N = {n}",
+            "resident_ms": resident_ms,
+            "resident_ms_of": "the resident route (one item at a time) on the "
+                              "same inputs in the same process",
             "plain_ms": plain_ms, "ms_at_plain_shape": ms_small,
             "plain_shape": {"M": CHOL_PLAIN_M, "N": n, "R": r},
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "bound_ms": bms, "bound_by": by,
+            "bound_fma_ms": bound_fma, "bound_tf32_ms": bound_tf32,
+            "bound_of": "6 R^2 M FLOP a draw: at float32 FMA, and as three "
+                        "TF32 passes (3xTF32) on the tensor cores; bound_ms "
+                        "is the route's",
+            "ms_over_bound_fma": ms / bound_fma,
+            "ms_over_bound_tf32": ms / bound_tf32,
+            "library_ms": None,
             "library": "none (no single PyTorch call)",
             "shape": {"M": m, "N": n, "R": r}}
 

@@ -1,9 +1,10 @@
 // Hopper's warpgroup matrix multiply (wgmma) for the kernels that run their
-// products on the tensor cores (csrc/flash_attn_sm90.cu, csrc/ssd.cu):
-// shared-memory descriptors under the 128-byte swizzle, the m64n64k16 and
-// m64n128k16 bf16 products with float32 accumulators, and the conversion
-// of an accumulator into the bf16 A operand of the next product.  sm_90a
-// only.
+// products on the tensor cores (csrc/flash_attn_sm90.cu, csrc/ssd.cu,
+// csrc/cholesky_scan.cu): shared-memory descriptors under the 128-byte
+// swizzle and without one, the m64n64k16 and m64n128k16 bf16 products with
+// float32 accumulators, the conversion of an accumulator into the bf16 A
+// operand of the next product, and the m64n8k8 / m64n32k8 TF32 products
+// with A in registers and their TF32 pairs.  sm_90a only.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -248,6 +249,95 @@ __device__ __forceinline__ void wgmma_ss_n64_tb(float (&d)[32], uint64_t a,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(acc));
+}
+
+// ------------------------------------------------------------------ TF32
+// A descriptor of a K-major tile without swizzle: 8-row core matrices of 16
+// bytes a row (4 TF32 values), 128 bytes each; `lbo` is the byte stride
+// between core matrices along K, `sbo` between 8-row groups along M or N.
+// (TF32 operands in shared memory must be K-major: the PTX ISA allows the
+// transpose bits only for 16-bit types.)
+__device__ __forceinline__ uint64_t plain_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  const uint32_t a = smem_u32(p);
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// x rounded to TF32 (to nearest, ties away), as the bits of a float32
+// whose low 13 mantissa bits are zero: the tensor cores read it exactly.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t out;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(out) : "f"(x));
+  return out;
+}
+
+// x as a TF32 pair: hi is x rounded, lo what that lost, rounded again.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// D (64 x 32, float32) += S A (64 x 8, TF32 in registers: rows g and g + 8
+// of the warp's 16, columns t and t + 4) B (8 x 32, TF32 in shared memory,
+// K-major), S = kScale (1 or -1).
+template <int kScale>
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, %21, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(kScale),
+        "r"(1));
+}
+
+// As wgmma_tf32_n32 for a 64-column B (D 64 x 64).
+template <int kScale>
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, %37, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(kScale),
+        "r"(1));
+}
+
+// As wgmma_tf32_n32 for an 8-column B (D 64 x 8).
+template <int kScale>
+__device__ __forceinline__ void wgmma_tf32_n8(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, %9, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(kScale),
+        "r"(1));
 }
 
 // Make this thread's ordinary stores to shared memory visible to the async

@@ -1,9 +1,12 @@
-"""Plain PyTorch version of the Cholesky sampler's sequential scan
-(Alg. 1): the reference's ``core/cholesky.py::sample_cholesky_inner``
-step (:62-73), expression for expression, batched over N draws as batched
-matrix-vector products on an (N, R, R) state.  The port's own kernel
-(``csrc/cholesky_scan.cu``) has no Pallas counterpart: the reference runs
-this scan as a ``lax.scan``."""
+"""Plain PyTorch versions of the Cholesky sampler's sequential scan
+(Alg. 1).  ``cholesky_scan_ref`` is the reference's
+``core/cholesky.py::sample_cholesky_inner`` step (:62-73), expression for
+expression, batched over N draws as batched matrix-vector products on an
+(N, R, R) state: the function the kernel is held to.
+``cholesky_scan_blocked_ref`` is the same function computed as the
+kernel's "blocked" route orders it, a block of b items at a time.  The
+port's own kernel (``csrc/cholesky_scan.cu``) has no Pallas counterpart:
+the reference runs this scan as a ``lax.scan``."""
 from __future__ import annotations
 
 import torch
@@ -14,8 +17,8 @@ EPS = 1e-8
 
 def cholesky_scan_ref(Z: torch.Tensor, W: torch.Tensor, u: torch.Tensor):
     """Z (M, R) item rows, W (R, R) the inner matrix every draw starts from,
-    u (N, M) uniforms.  Returns (take (N, M) bool, p (N, M) float32): per
-    draw n and item i in order, with Q_n = W at first,
+    u (N, M) uniforms.  Returns (take (N, M) bool, p (N, M) in the
+    inputs' dtype): per draw n and item i in order, with Q_n = W at first,
     ``qz = Q z_i``, ``zq = z_i^T Q``, ``p = z_i . qz``, ``take = u < p``
     (strict: a zero-marginal item is never taken, at u = 0 included),
     ``denom = max(p, eps)`` if taken else ``min(p - 1, -eps)``, and
@@ -24,7 +27,7 @@ def cholesky_scan_ref(Z: torch.Tensor, W: torch.Tensor, u: torch.Tensor):
     n = u.shape[0]
     q = W.expand(n, r, r).clone()
     take = torch.empty((n, m), dtype=torch.bool, device=Z.device)
-    p_out = torch.empty((n, m), dtype=torch.float32, device=Z.device)
+    p_out = torch.empty((n, m), dtype=Z.dtype, device=Z.device)
     for i in range(m):
         z = Z[i]
         qz = q @ z                                        # (N, R)
@@ -35,6 +38,78 @@ def cholesky_scan_ref(Z: torch.Tensor, W: torch.Tensor, u: torch.Tensor):
         q = q - qz[:, :, None] * zq[:, None, :] / denom[:, None, None]
         take[:, i] = t
         p_out[:, i] = p
+    return take, p_out
+
+
+def _decide(g: torch.Tensor, u: torch.Tensor, pivot_p: bool = False):
+    """The block's b decisions and the inverse of its pivoted Gram, as the
+    kernel's deciding warp computes them.  g: (N, b, b) with
+    g[n, j, k] = z_j^T Q z_k; u: (N, b).  Gauss-Jordan in place without
+    row exchange: at step j the eliminated diagonal is p_j, ``take = u_j <
+    p_j``, and the pivot is the clamped denominator d_j (``max(p_j, eps)``
+    if taken, else ``min(p_j - 1, -eps)``; ``pivot_p`` plants the fault
+    ``min(p_j, -eps)``).  Eliminating with d_j carries each decision into
+    the later items' p, so the p_j are the sequential scan's.  Returns
+    (take (N, b), p (N, b), C (N, b, b)), C = (G + diag(d - p))^-1."""
+    a = g.clone()
+    n, b, _ = a.shape
+    take = torch.empty((n, b), dtype=torch.bool, device=a.device)
+    p_out = torch.empty((n, b), dtype=a.dtype, device=a.device)
+    for j in range(b):
+        p = a[:, j, j].clone()
+        t = u[:, j] < p
+        reject = (p if pivot_p else p - 1.0).clamp_max(-EPS)
+        inv = 1.0 / torch.where(t, p.clamp_min(EPS), reject)
+        f = a[:, :, j].clone()
+        row = a[:, j, :].clone()
+        row[:, j] = 1.0
+        row = row * inv[:, None]
+        a[:, :, j] = 0.0
+        a = a - f[:, :, None] * row[:, None, :]
+        a[:, j, :] = row
+        take[:, j] = t
+        p_out[:, j] = p
+    return take, p_out, a
+
+
+def _matmul(x: torch.Tensor, y: torch.Tensor, name: str) -> torch.Tensor:
+    return x @ y
+
+
+def cholesky_scan_blocked_ref(Z: torch.Tensor, W: torch.Tensor,
+                              u: torch.Tensor, block: int, product=_matmul,
+                              pivot_p: bool = False):
+    """``cholesky_scan_ref``'s function computed a block of ``block`` items
+    at a time, in the dtype of the inputs, as the kernel's "blocked" route
+    orders it.  For a block Z_b (b x R, rows past M zero) and each draw's
+    state Q: A = Q Z_b^T and B = Z_b Q (the kernel's tensor-core
+    products), G = Z_b A (float32 FMA in the kernel), the b decisions and
+    C = (G + diag(d - p))^-1 by ``_decide``, then the rank-b update
+    Q -= (A C) B (two more tensor-core products).  ``product(x, y, name)``
+    computes those four products, named "A", "B", "AC" and "update"
+    (``tools/cholesky_rounding.py`` passes one that rounds the operands as
+    the tensor cores see them); ``pivot_p`` plants ``_decide``'s fault.
+    Returns (take (N, M) bool, p (N, M) in the inputs' dtype)."""
+    if block < 1:
+        raise ValueError(f"block must be >= 1, got {block}")
+    m, r = Z.shape
+    n = u.shape[0]
+    q = W.expand(n, r, r).clone()
+    take = torch.empty((n, m), dtype=torch.bool, device=Z.device)
+    p_out = torch.empty((n, m), dtype=Z.dtype, device=Z.device)
+    for s in range(0, m, block):
+        e = min(s + block, m)
+        zb = Z.new_zeros((block, r))
+        zb[: e - s] = Z[s:e]
+        ub = u.new_ones((n, block))
+        ub[:, : e - s] = u[:, s:e]
+        a = product(q, zb.T, "A")                        # (N, R, b)
+        bm = product(zb, q, "B")                         # (N, b, R)
+        g = zb @ a                                       # (N, b, b)
+        t, p, c = _decide(g, ub.to(g.dtype), pivot_p)
+        q = q - product(product(a, c, "AC"), bm, "update")
+        take[:, s:e] = t[:, : e - s]
+        p_out[:, s:e] = p[:, : e - s]
     return take, p_out
 
 
@@ -59,8 +134,12 @@ def random_inputs(m: int, r: int, n: int, seed: int, device,
 
 #: the faults ``planted_scan`` plants: p and take all zero; no downdate (each
 #: item an independent Bernoulli(K_ii), which keeps E|Y| = tr(K)); the
-#: denominator's sign flipped
-FAULTS = ("zeros", "skip_downdate", "flip_sign")
+#: denominator's sign flipped; the blocked form with a rejected item's
+#: pivot left at p instead of p - 1
+FAULTS = ("zeros", "skip_downdate", "flip_sign", "pivot_p")
+
+#: the block of the "pivot_p" fault: the kernel's blocked route's
+FAULT_BLOCK = 32
 
 
 def planted_scan(Z: torch.Tensor, W: torch.Tensor, u: torch.Tensor,
@@ -74,6 +153,8 @@ def planted_scan(Z: torch.Tensor, W: torch.Tensor, u: torch.Tensor,
     if fault == "skip_downdate":
         p = ((Z @ W) * Z).sum(-1).expand(n, m).to(torch.float32)
         return u < p, p.contiguous()
+    if fault == "pivot_p":
+        return cholesky_scan_blocked_ref(Z, W, u, FAULT_BLOCK, pivot_p=True)
     if fault != "flip_sign":
         raise ValueError(f"unknown fault {fault!r}; one of {FAULTS}")
     q = W.expand(n, *W.shape).clone()

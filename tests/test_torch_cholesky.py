@@ -43,6 +43,7 @@ from repro_torch.core import (
 from repro_torch.kernels.cholesky_scan import ops as scan_ops
 from repro_torch.kernels.cholesky_scan.ref import (
     FAULTS,
+    cholesky_scan_blocked_ref,
     cholesky_scan_ref,
     flip_gaps,
     planted_scan,
@@ -257,7 +258,7 @@ def test_flip_rule_holds_float32_scan_to_float64():
 def test_flip_rule_refuses_planted_faults(fault):
     """Each planted fault of the plain scan fails the flip rule: all zeros,
     the downdate skipped (which keeps E|Y| = tr(K)), the denominator's sign
-    flipped."""
+    flipped, the blocked form's rejected pivot left at p."""
     z, w, u = scan_inputs(96, 24, 8, seed=41)
     take, p = planted_scan(z, w, u, fault)
     gaps = flip_gaps(take, p, *cholesky_scan_ref(z, w, u), u)
@@ -281,6 +282,78 @@ def test_flip_rule_judges_a_flip_by_its_margin(fair):
     assert gaps["flipped_draws"] == 1
     assert gaps["p_excess"] == 0.0
     assert gaps["within"] is fair, gaps
+
+
+def _block_edges(m, block):
+    """Rows at a block's first and last item, below m."""
+    return sorted({i for s in range(0, m, block) for i in (s, s + block - 1)
+                   if i < m})
+
+
+@pytest.mark.parametrize("block", [1, 3, 32])
+@pytest.mark.parametrize("m", [20, 100, 96],
+                         ids=["M_below_block", "ragged", "whole_blocks"])
+def test_blocked_ref_matches_sequential_float64(m, block):
+    """In float64 the blocked form (the kernel's "blocked" route's order)
+    makes the sequential scan's decisions with p within 1e-12 of it, for M
+    below a block, M not a multiple of it, and zero rows at blocks' first
+    and last items (never taken)."""
+    z, w, u = scan_inputs(m, 24, 6, seed=m + block)
+    zero = _block_edges(m, 32)[:6] + _block_edges(m, block)[:4]
+    z[zero] = 0.0
+    z, w, u = z.double(), w.double(), u.double()
+    take, p = cholesky_scan_ref(z, w, u)
+    take_b, p_b = cholesky_scan_blocked_ref(z, w, u, block)
+    assert torch.equal(take_b, take)
+    assert int(take.sum()) >= 6
+    assert not bool(take_b[:, zero].any())
+    torch.testing.assert_close(p_b, p, rtol=1e-12,
+                               atol=1e-12 * float(p.abs().max()))
+
+
+@pytest.mark.parametrize("block", [3, 32])
+def test_blocked_ref_float32_within_flip_rule(block):
+    """The blocked form in float32 stands to the float64 scan as the
+    sequential one does: within the flip rule, decisions held."""
+    z, w, u = scan_inputs(200, 32, 8, seed=43)
+    take64, p64 = cholesky_scan_ref(z.double(), w.double(), u.double())
+    gaps = flip_gaps(*cholesky_scan_blocked_ref(z, w, u, block), take64,
+                     p64.float(), u)
+    assert gaps["within"], gaps
+    assert gaps["compared_takes"] >= 8 * 10, gaps
+
+
+def test_blocked_ref_decides_as_reference(golden):
+    """On the reference's uniforms the blocked form's decisions equal the
+    reference scan's (``sample_cholesky_inner``) up to the flip rule, with
+    the port's sequential p as the plain marginals."""
+    ref, got, _ = golden
+    x_ref = jax_x_from_sigma(ref.K, ref.sigma)
+    w_ref = jax_chol.marginal_inner(ref.Z, x_ref)
+    w = marginal_inner(got.Z, x_from_sigma(got.K, got.sigma))
+    with golden_key_layout():
+        keys = jax.random.split(jax.random.PRNGKey(5), 6)
+        want = np.asarray(jax.vmap(
+            lambda k: jax_chol.sample_cholesky_inner(ref.Z, w_ref, k))(keys))
+        u = trandom.uniform(trandom.as_key(keys), (got.M,))
+    _, p_seq = cholesky_scan_ref(got.Z, w, u)
+    for block in (7, 32):
+        gaps = flip_gaps(*cholesky_scan_blocked_ref(got.Z, w, u, block),
+                         torch.from_numpy(want.copy()), p_seq, u)
+        assert gaps["within"], (block, gaps)
+        assert gaps["compared_takes"] >= 1, gaps
+
+
+def test_scan_routes_by_width():
+    """The kernel's route is a function of R alone: "blocked" up to
+    ``BLOCKED_MAX_R``, "resident" to ``MAX_R``, wider refused."""
+    assert scan_ops.route(1) == scan_ops.route(200) == "blocked"
+    assert scan_ops.route(scan_ops.BLOCKED_MAX_R) == "blocked"
+    assert scan_ops.route(scan_ops.BLOCKED_MAX_R + 1) == "resident"
+    assert scan_ops.route(scan_ops.MAX_R) == "resident"
+    for r in (0, scan_ops.MAX_R + 1):
+        with pytest.raises(ValueError, match="R <= 224"):
+            scan_ops.route(r)
 
 
 M_EXACT, K_EXACT, N_SAMPLES = 8, 4, 20000

@@ -1034,8 +1034,10 @@ def test_mamba_train_step_on_card_matches_cpu(cuda):
 
 
 # ------------------------------------------------- the Cholesky scan kernel
-_SCAN_CASES = ([(257, r, 3) for r in (1, 8, 33, 200, 224)]
-               + [(m, 200, 5) for m in (1, 63, 64, 65, 4097)]
+# R at both routes' edges (blocked to 208, resident 209-224); M at the
+# blocked route's block edges (b = 32: b - 1, b, b + 1, 2b, 2b + 1)
+_SCAN_CASES = ([(257, r, 3) for r in (1, 8, 33, 200, 208, 209, 224)]
+               + [(m, 200, 5) for m in (1, 31, 32, 33, 63, 64, 65, 4097)]
                + [(300, 64, n) for n in (1, 131, 132, 133, 300)])
 
 
@@ -1047,14 +1049,17 @@ def _scan_inputs(cuda, m, r, n, seed, zero_rows=()):
 
 @pytest.mark.parametrize("m,r,n", _SCAN_CASES)
 def test_cholesky_scan_kernel(cuda, m, r, n):
-    """One launch; decisions equal the plain version's up to each draw's
-    first flip, a flip only where u is within the flip rule's limit of the
-    plain p, p within it before the flip; two calls give the same bits."""
+    """One launch, on the route of R; decisions equal the plain version's
+    up to each draw's first flip, a flip only where u is within the flip
+    rule's limit of the plain p, p within it before the flip; two calls
+    give the same bits."""
     z, w, u = _scan_inputs(cuda, m, r, n, seed=m * 1000 + r + n)
-    before = scan_ops.launches
+    count = f"{scan_ops.route(r)}_launches"
+    before, on_route = scan_ops.launches, getattr(scan_ops, count)
     take, p = scan_ops.cholesky_scan(z, w, u)
     torch.cuda.synchronize()
     assert scan_ops.launches == before + 1
+    assert getattr(scan_ops, count) == on_route + 1
     assert take.dtype == torch.bool and take.shape == (n, m) == p.shape
     gaps = flip_gaps(take, p, *cholesky_scan_ref(z, w, u), u)
     assert gaps["within"], gaps
@@ -1079,11 +1084,53 @@ def test_cholesky_scan_never_takes_zero_rows(cuda):
     assert gaps["within"], gaps
 
 
+def test_cholesky_scan_zero_rows_at_block_edges(cuda):
+    """Zero rows at the blocked route's block edges (the first and last
+    item of a block of 32, and the last row) are never taken, at u = 0
+    too, and the draws around them hold to the plain version."""
+    zero = (0, 31, 32, 63, 64, 95, 96, 299)
+    z, w, u = _scan_inputs(cuda, 300, 200, 7, seed=17, zero_rows=zero)
+    u[:, list(zero)] = 0.0
+    take, p = scan_ops.cholesky_scan(z, w, u)
+    assert not bool(take[:, list(zero)].any())
+    assert bool((p[:, list(zero)] == 0).all())
+    gaps = flip_gaps(take, p, *cholesky_scan_ref(z, w, u), u)
+    assert gaps["within"], gaps
+
+
+def test_cholesky_scan_unaligned_rows(cuda):
+    """Rows that start 4 bytes off a 16-byte boundary (a contiguous view
+    one float into its storage) load by floats and give the aligned
+    copy's bits."""
+    z, w, u = _scan_inputs(cuda, 100, 64, 3, seed=29)
+    flat = torch.empty(z.numel() + 1, device=cuda)
+    shifted = flat[1:].view(z.shape)
+    shifted.copy_(z)
+    assert shifted.data_ptr() % 16 == 4 and shifted.is_contiguous()
+    take, p = scan_ops.cholesky_scan(shifted, w, u)
+    want_take, want_p = scan_ops.cholesky_scan(z, w, u)
+    assert torch.equal(take, want_take) and torch.equal(p, want_p)
+
+
+@pytest.mark.parametrize("r", [8, 200])
+def test_cholesky_scan_routes_agree(cuda, r):
+    """Both routes, where R lets both run, hold to the plain version on the
+    same inputs, each one launch on its own count."""
+    z, w, u = _scan_inputs(cuda, 300, r, 9, seed=23 + r)
+    take_r, p_r = cholesky_scan_ref(z, w, u)
+    for route in scan_ops.ROUTES:
+        before = getattr(scan_ops, f"{route}_launches")
+        gaps = flip_gaps(*scan_ops._launch(route, z, w, u), take_r, p_r, u)
+        assert gaps["within"], (route, gaps)
+        assert getattr(scan_ops, f"{route}_launches") == before + 1
+
+
 @pytest.mark.parametrize("fault", FAULTS)
 def test_cholesky_scan_rule_refuses_planted_fault(cuda, fault):
     """On the card's inputs at R = 200 with marginals of O(0.1), the flip
     rule passes the kernel and refuses the plain scan with a fault planted
-    (all zeros, the downdate skipped, the denominator's sign flipped)."""
+    (all zeros, the downdate skipped, the denominator's sign flipped, the
+    blocked form's rejected pivot left at p)."""
     z, w, u = _scan_inputs(cuda, 1024, 200, 132, seed=11)
     take_r, p_r = cholesky_scan_ref(z, w, u)
     sound = flip_gaps(*scan_ops.cholesky_scan(z, w, u), take_r, p_r, u)

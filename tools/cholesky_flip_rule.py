@@ -6,11 +6,12 @@ planted faults.
 For the card tests' scan cases (``tests/test_torch_gpu.py``: R 1–224, M
 1–4,097, N 1–300, zero rows), 1,024 rows at R = 200 with marginals of
 O(0.1), and the first 2^14 of 2^20 rows of E|Y| ~ 40 (marginals ~4e-5, as
-on the main path), the kernel (``csrc/cholesky_scan.cu``) and the plain
-scan with each planted fault of ``ref.FAULTS`` are held to the plain
-version by ``ref.flip_gaps`` at the rule's limits (``ref.RTOL``,
-``ref.ATOL_FRAC``) and at limits ten and a hundred times tighter.  Prints
-one JSON line a case (the kernel's excess under each pair of limits, the
+on the main path), the kernel (``csrc/cholesky_scan.cu``, on the route of
+R: "blocked" to R = 208, "resident" past it) and the plain scan with each
+planted fault of ``ref.FAULTS`` are held to the plain version by
+``ref.flip_gaps`` at the rule's limits (``ref.RTOL``, ``ref.ATOL_FRAC``)
+and at limits ten and a hundred times tighter.  Prints one JSON line a
+case (the route, the kernel's excess under each pair of limits, the
 largest |p - p_plain|, the decisions held, each fault's excess; an excess
 of at most 1 passes), then the card's name and power limit as
 ``nvidia-smi`` gives them.  Data are seeded normal draws.  Needs a CUDA
@@ -30,7 +31,8 @@ def hold(name, z, w, u) -> dict:
 
     take, p = ops.cholesky_scan(z, w, u)
     take_r, p_r = ref.cholesky_scan_ref(z, w, u)
-    rec = {"case": name, "mean_p": float(p_r.mean()),
+    rec = {"case": name, "route": ops.route(z.shape[1]),
+           "mean_p": float(p_r.mean()),
            "max_p": float(p_r.abs().max())}
     for rtol, atol_frac in LIMITS:
         g = ref.flip_gaps(take, p, take_r, p_r, u, rtol, atol_frac)
@@ -53,8 +55,8 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
-    cases = ([(257, r, 3) for r in (1, 8, 33, 200, 224)]
-             + [(m, 200, 5) for m in (1, 63, 64, 65, 4097)]
+    cases = ([(257, r, 3) for r in (1, 8, 33, 200, 208, 209, 224)]
+             + [(m, 200, 5) for m in (1, 31, 32, 33, 63, 64, 65, 4097)]
              + [(300, 64, n) for n in (1, 131, 132, 133, 300)])
     for m, r, n in cases:
         print(json.dumps(hold(f"M {m}, R {r}, N {n}",

@@ -1,15 +1,18 @@
 """Time the Cholesky sampler's scan kernel (``csrc/cholesky_scan.cu``) for
-one draw at several widths R, to split its time an item into a part that
-grows with R^2 (the pass over Q) and one that does not (the per-item chain
-of sums, decision and barriers).
+one draw at several widths R on each route, to split its time an item into
+a part that grows with R^2 and one that does not.
 
-    PYTHONPATH=src python tools/cholesky_scan_times.py [--m 32768] [--r 8 128 200 224]
+    PYTHONPATH=src python tools/cholesky_scan_times.py [--m 32768]
+        [--r 8 128 200 208 224]
 
-Rows are normal draws from ``--seed`` scaled to E|Y| ~ 10 against W = I,
-one draw (N = 1, one SM); the time does not depend on the data.  Prints
-one JSON line: the card's name and power limit as ``nvidia-smi`` gives
-them and, per R, the mean CUDA-event time of ``--reps`` warm calls in ms
-and in ns an item.  Needs a CUDA device; imports no JAX.
+Routes: "blocked" (a block of b = 32 items at a time, R <= 208) and
+"resident" (b = 1, one item at a time, R <= 224), each run at every R it
+takes, on the same inputs.  Rows are normal draws from ``--seed`` scaled
+to E|Y| ~ 10 against W = I, one draw (N = 1, one SM); the time does not
+depend on the data.  Prints one JSON line: the card's name and power
+limit as ``nvidia-smi`` gives them and, per R and route (with its b), the
+mean CUDA-event time of ``--reps`` warm calls in ms and in ns an item.
+Needs a CUDA device; imports no JAX.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--m", type=int, default=1 << 15)
-    ap.add_argument("--r", type=int, nargs="+", default=[8, 128, 200, 224])
+    ap.add_argument("--r", type=int, nargs="+",
+                    default=[8, 128, 200, 208, 224])
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -54,14 +58,20 @@ def main() -> None:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    block = {"blocked": ops.BLOCK, "resident": 1}
     times = {}
     for r in args.r:
         z = torch.randn((args.m, r), generator=gen, device="cuda")
-        z *= (10.0 / args.m) ** 0.5
+        z *= (10.0 / args.m / r) ** 0.5
         w = torch.eye(r, device="cuda")
         u = torch.rand((1, args.m), generator=gen, device="cuda")
-        ms = cuda_ms(lambda: ops.cholesky_scan(z, w, u), args.reps)
-        times[str(r)] = {"ms": ms, "ns_an_item": ms * 1e6 / args.m}
+        for route in ops.ROUTES:
+            if route == "blocked" and r > ops.BLOCKED_MAX_R:
+                continue
+            ms = cuda_ms(lambda: ops._launch(route, z, w, u), args.reps)
+            times.setdefault(str(r), {})[route] = {
+                "b": block[route], "ms": ms, "ns_an_item": ms * 1e6 / args.m}
+        times[str(r)]["route"] = ops.route(r)
     print(json.dumps({"card": card, "M": args.m, "N": 1, "reps": args.reps,
                       "by_R": times}))
 
