@@ -24,7 +24,22 @@ kernel against its plain PyTorch version on the card:
    requests and a ``sample_k_ndpp`` of size 10 (``descend_score``), one
    ``sample_elementary_dense`` draw (``bilinear`` over all 2^20 rows a
    step) -> ``{"cholesky": ...}``;
-4. the dynamic catalog at the same width: a ``Catalog`` of the main path's
+4. the learned path at the same width, nothing cut: ``planted_baskets``
+   (4,096 baskets of up to 8 items over the 2^20 items, 410 held out),
+   ``fit_ondpp`` from the main path's factors (20 AdamW steps of 256
+   baskets, each iterate projected; every loss finite, the last full-batch
+   loss below the first, max|B^T B - I| and max|V^T B| / (|V| |B|) within
+   1e-4; step ms cold and warm, the slogdet and QR times beside them, a
+   2-step fit under the profiler),
+   ``export_spectral`` and ``export_sampler`` (``block_outer_sums``), 64
+   requests through an 8-slot engine (``descend_score``; valid, mean trials
+   within [0.5, 2] x det_ratio_exact), a ``NextItemServer``'s scores and top
+   10 on 8 held-out baskets (``bilinear`` on W_J, observed items at -inf),
+   ``greedy_map`` of 10, a completion wave of one key a SM on one basket
+   (``cholesky_scan``; no observed item taken, mean |Y| within 5 standard
+   errors of tr(K_J)) and MPR against the popularity baseline on the
+   held-out baskets -> ``{"learned": ...}``;
+5. the dynamic catalog at the same width: a ``Catalog`` of the main path's
    factors with 2^20 rows of capacity and 2^20 - 4,096 live items
    (staleness 1), four timed mutation batches (insert 2,048 items into the
    slack, update 1,024, delete 1,024 with the snapshot deferred, refresh),
@@ -33,11 +48,11 @@ kernel against its plain PyTorch version on the card:
    ``swap_catalog`` to a further-deleted version after its first tick:
    pre-swap requests must equal an engine that never swapped, and no
    request may draw an item deleted in its version -> ``{"catalog": ...}``;
-5. the MCMC backend on the main path's spectral state: fixed-size chains
+6. the MCMC backend on the main path's spectral state: fixed-size chains
    (k = 8, the main path's mean |Y|) from stochastic-greedy starts, 8
    slots, 64 requests, each result 8 distinct items with det(L_Y) > 0
    -> ``{"mcmc": ...}``;
-6. item-axis sharding at the same width on meshes of S = 1 and S = 2
+7. item-axis sharding at the same width on meshes of S = 1 and S = 2
    shards (both on the one card, or on two cards where the host has
    them): 64 rejection requests through ``SamplerEngine(mesh=)`` per S
    (S = 1 and S = 2 equal per rid, valid, mean trials against
@@ -49,7 +64,7 @@ kernel against its plain PyTorch version on the card:
    ``torch.equal`` to a sharded rebuild and to the unsharded catalog's
    tree; 16 requests equal at S = 1 and 2) and 16 MCMC requests (S = 1
    and 2 equal) -> one ``{"sharded": ...}`` line;
-7. the LM template's training path, with the NDPP phases' memory freed:
+8. the LM template's training path, with the NDPP phases' memory freed:
    qwen3-1.7b at full width and depth (28 layers, d_model 2,048, GQA 16 /
    8 heads of 128, vocab 151,936, bfloat16, 2.03 B parameters) from the
    port's seeded init, AdamW with the reference defaults, ``lm_batch`` at
@@ -67,7 +82,7 @@ kernel against its plain PyTorch version on the card:
    of the flash kernels, step 0's loss, grad norm and every gradient leaf
    on the same params against the kernels', then the witness's own
    steps' losses and grad norms against the kernel run's;
-8. the SSM training path, with the qwen3 phase's memory freed:
+9. the SSM training path, with the qwen3 phase's memory freed:
    mamba2-1.3b at full width and depth (48 FFN-less Mamba2 layers, d_model
    2,048, d_inner 4,096, 64 heads of P = 64, state N = 128, chunk 128,
    vocab 50,280, bfloat16, 1.44 B parameters) through the same steps at
@@ -80,11 +95,12 @@ kernel against its plain PyTorch version on the card:
    that runs ``ssd_chunked_ref`` under autograd in place of the kernels,
    both paths in float32 (bf16 rounding alone moves mamba2's step-0
    gradients by more than the witness's tolerance: how far is a reading);
-9. each kernel against its plain version at its path's shapes, on inputs
+10. each kernel against its plain version at its path's shapes, on inputs
    the paths themselves produced (the main path's tree rows and first
    round's projectors and uniforms; the catalog's update batch; the greedy
    start's score matrices; the sharded descent's leaf blocks and
-   projectors; the catalog's rows and X; layer 0's q, k, v of a timed
+   projectors; the catalog's rows and X, and the learned path's rows and
+   nonsymmetric W_J of a held-out basket; layer 0's q, k, v of a timed
    train step and a seeded dO; layer 0's x, a, B, C of a timed SSM train
    step and a seeded dy; planted faults must fail the attention and SSD
    per-row tolerances), with times, bounds and launch counts by path ->
@@ -95,9 +111,14 @@ kernel against its plain PyTorch version on the card:
    at the TF32 tensor-core rate; it is held to its plain version by the
    flip rule (decisions equal up to each draw's first flip; p within 1e-4
    of the plain p relative, plus 1e-6 of the largest, before it, and u
-   that close to the plain p at it) on the first 2^14 rows and on 1,024
-   seeded rows whose marginals are O(0.1) (there on both routes); on
-   both, the rule must refuse the plain scan with each planted fault (all
+   that close to the plain p at it): against the plain scan in float64 on
+   4 of the wave's draws over all 2^20 rows (a CUDA graph of the plain
+   steps, replayed along the rows), on the first 2^14 rows of every draw
+   and on 4 draws of the learned path's completion wave over all its
+   rows (which must equal the draws the path took); against the float32
+   plain scan on 1,024 seeded rows whose marginals are O(0.1) (there on
+   both routes); on the first 2^14 rows and the seeded ones, the rule
+   must refuse the plain scan with each planted fault (all
    zeros, the downdate skipped, the denominator's sign flipped, the
    blocked form's rejected pivot left at p).  The ``descend_score
    entry adds its device time from a profiler trace taken right after the
@@ -117,7 +138,7 @@ kernel against its plain PyTorch version on the card:
    every float32 operand a bf16 pair hi + lo, two calls equal) with the
    float32 SIMT kernel, the other route, timed beside it on the same
    inputs (the forward's chunk-start states held to the SIMT kernel's);
-10. the last line: ``{"ok": true, "device": {...}}``.
+11. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero (an exception's traceback, or a FAIL line)
 before the last line: no GPU, a build or launch error, a parity miss, an
@@ -786,30 +807,114 @@ def _hold_scan(zs, W, us, take, p, plain=None):
     take_r, p_r = plain if plain is not None else ref.cholesky_scan_ref(
         zs, W, us)
     gaps = ref.flip_gaps(take, p, take_r, p_r, us)
-    faults = {}
-    for fault in ref.FAULTS:
-        bad = ref.flip_gaps(*ref.planted_scan(zs, W, us, fault), take_r, p_r,
-                            us)
-        faults[fault] = {"p_excess": bad["p_excess"],
-                         "flip_excess": bad["flip_excess"],
-                         "refused": not bad["within"]}
     gaps["mean_p"] = float(p_r.mean())
-    return gaps, faults
+    return gaps, _refusals(zs, W, us, (take_r, p_r))
 
 
-def check_cholesky_scan(sp, keys, x, launches):
+#: the planted faults that need no loop over the rows, run over all M
+FULL_M_FAULTS = ("zeros", "skip_downdate")
+
+
+def _refusals(zs, W, us, plain, faults=None) -> dict:
+    """Each planted fault of ``faults`` (default ``ref.FAULTS``) on the
+    rows zs, held to ``plain`` = (take, p) by the flip rule, which must
+    refuse it."""
+    from repro_torch.kernels.cholesky_scan import ref
+
+    out = {}
+    for fault in faults or ref.FAULTS:
+        bad = ref.flip_gaps(*ref.planted_scan(zs, W, us, fault), *plain, us)
+        out[fault] = {"p_excess": bad["p_excess"],
+                      "flip_excess": bad["flip_excess"],
+                      "refused": not bad["within"]}
+    return out
+
+
+FLOAT64_DRAWS = 4          # draws held over the full M to a float64 scan
+FLOAT64_CHUNK = 256        # the float64 scan's rows a CUDA graph replay
+
+
+def scan_float64(Z, W, u):
+    """The plain scan (``ref.scan_rows_``, ``cholesky_scan_ref``'s steps) in
+    float64 over every row of Z for the draws of u: the steps of
+    FLOAT64_CHUNK rows captured once in a CUDA graph and replayed along
+    the rows, since the plain scan launches ~13 small kernels a row.  The
+    rows are padded with zero rows, which change no state and are never
+    taken.  Returns (take (N, M) bool, p (N, M) float64)."""
+    import torch
+    from repro_torch.kernels.cholesky_scan import ref
+
+    m, r = Z.shape
+    n, c = u.shape[0], FLOAT64_CHUNK
+    pad = (-m) % c
+    f64 = dict(dtype=torch.float64, device=Z.device)
+    z64 = torch.cat([Z.double(), torch.zeros((pad, r), **f64)])
+    u64 = torch.cat([u.double(), torch.ones((n, pad), **f64)], 1)
+    q = W.double().expand(n, r, r).clone()
+    zc, uc = torch.zeros((c, r), **f64), torch.ones((n, c), **f64)
+    tc = torch.empty((n, c), dtype=torch.bool, device=Z.device)
+    pc = torch.empty((n, c), **f64)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up on zero rows: q stays W
+        ref.scan_rows_(q, zc, uc, tc, pc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ref.scan_rows_(q, zc, uc, tc, pc)
+    take = torch.empty((n, m + pad), dtype=torch.bool, device=Z.device)
+    p = torch.empty((n, m + pad), **f64)
+    for s in range(0, m + pad, c):
+        zc.copy_(z64[s:s + c])
+        uc.copy_(u64[:, s:s + c])
+        graph.replay()
+        take[:, s:s + c].copy_(tc)
+        p[:, s:s + c].copy_(pc)
+    return take[:, :m], p[:, :m]
+
+
+def _hold_full_m(Z, W, u):
+    """The kernel's draws on uniforms u (FLOAT64_DRAWS, M) over all M rows
+    held to ``scan_float64`` on the same inputs by the flip rule, with the
+    float64 scan's seconds, and FULL_M_FAULTS over all M held to it too
+    (``planted_faults``).  Returns (gaps, the kernel's (take, p), the
+    float64 scan's (take, p))."""
+    import torch
+    from repro_torch.kernels.cholesky_scan import ops, ref
+
+    take, p = ops.cholesky_scan(Z, W, u)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    take64, p64 = scan_float64(Z, W, u)
+    torch.cuda.synchronize()
+    t64 = time.perf_counter() - t0
+    gaps = ref.flip_gaps(take, p, take64, p64.float(), u)
+    gaps.update(draws=u.shape[0], M=Z.shape[0], float64_scan_s=t64,
+                takes=int(take.sum()), mean_p=float(p64.mean()),
+                planted_faults=_refusals(Z, W, u, (take64, p64.float()),
+                                         FULL_M_FAULTS))
+    return gaps, (take, p), (take64, p64)
+
+
+def check_cholesky_scan(sp, keys, x, launches, learned):
     """The scan kernel on the main path's rows and inner matrix with the
     wave's uniforms: timed at full M on its route (``ops.route``) and, on
-    the same inputs, on the "resident" route; held to its plain version
-    by the flip rule (``ref.flip_gaps``: decisions equal up to each draw's
-    first flip, |p - p_plain| <= RTOL |p_plain| + ATOL_FRAC max|p_plain|
-    before it, a flip only where |u - p_plain| is within that) on the first
-    CHOL_PLAIN_M rows, and on CHOL_DECIDE_M seeded rows with marginals of
-    O(0.1) where the draws take items (both routes there); on both, the
-    rule refuses each planted fault; two calls equal, one launch a call.
-    Two bounds for the same 6 R^2 M FLOP a draw: float32 FMA, and the
-    blocked route's three TF32 passes (3xTF32) on the tensor cores; the
-    entry's ``bound_ms`` is the route's."""
+    the same inputs, on the "resident" route.  It is held by the flip rule
+    (``ref.flip_gaps``: decisions equal up to each draw's first flip,
+    |p - p_ref| <= RTOL |p_ref| + ATOL_FRAC max|p_ref| before it, a flip
+    only where |u - p_ref| is within that) to the plain scan in float64:
+    on the wave's first FLOAT64_DRAWS draws over all M rows, on the first
+    CHOL_PLAIN_M rows of every draw, and on the learned path's
+    completion wave (its first FLOAT64_DRAWS draws over all M conditional
+    rows, which must be the draws the path took); on CHOL_DECIDE_M seeded
+    rows with marginals of O(0.1), where the draws take items, to the
+    float32 plain scan (both routes there).  The rule must refuse each
+    planted fault on the main rows, on the decision rows and on the
+    learned completions' first CHOL_PLAIN_M rows, and each of
+    FULL_M_FAULTS over all M rows of both float64 holds; two calls equal,
+    one launch a call.  Two bounds for the same 6 R^2 M FLOP a
+    draw: float32 FMA, and the blocked route's three TF32 passes (3xTF32)
+    on the tensor cores; the entry's ``bound_ms`` is the route's."""
     import torch
     from repro_torch import random as trandom
     from repro_torch.core import marginal_inner
@@ -830,6 +935,7 @@ def check_cholesky_scan(sp, keys, x, launches):
     bound_tf32, by_tf32 = bound(n_bytes, 3 * n_flop, TF32_FLOP_PER_S)
     bms, by = (bound_tf32, by_tf32) if route == "blocked" else (bound_fma,
                                                                 by_fma)
+    full, _, _ = _hold_full_m(Z, W, u[:FLOAT64_DRAWS].contiguous())
     zs = Z[:CHOL_PLAIN_M].contiguous()
     us = u[:, :CHOL_PLAIN_M].contiguous()
     del u
@@ -839,15 +945,28 @@ def check_cholesky_scan(sp, keys, x, launches):
     again = ops.cholesky_scan(zs, W, us)
     deterministic = torch.equal(take, again[0]) and torch.equal(p, again[1])
     plain = ref.cholesky_scan_ref(zs, W, us)
-    gaps, faults = _hold_scan(zs, W, us, take, p, plain)
-    # both against the same scan in float64: the float32 plain version's
-    # own rounding grows along the rows (2^14 sequential downdates)
     take64, p64 = ref.cholesky_scan_ref(zs.double(), W.double(), us.double())
-    vs64 = {name: {k: g[k] for k in ("p_excess", "flip_excess", "max_p_gap")}
+    # the gate and the planted faults against float64: the float32 plain
+    # version's own rounding grows along the rows (2^14 sequential downdates)
+    gaps, faults = _hold_scan(zs, W, us, take, p, (take64, p64.float()))
+    vs32 = {name: {k: g[k] for k in ("p_excess", "flip_excess", "max_p_gap")}
             for name, g in (
-                ("kernel", ref.flip_gaps(take, p, take64, p64.float(), us)),
-                ("plain", ref.flip_gaps(*plain, take64, p64.float(), us)))}
+                ("kernel", ref.flip_gaps(take, p, *plain, us)),
+                ("plain_against_float64",
+                 ref.flip_gaps(*plain, take64, p64.float(), us)))}
     del take64, p64, plain
+    z_c, w_c, u_c, drawn = learned
+    lgaps, (ltake, lp), (ltake64, lp64) = _hold_full_m(z_c, w_c, u_c)
+    learned_same = all(np.array_equal(np.flatnonzero(t), d)
+                       for t, d in zip(ltake.cpu().numpy(), drawn))
+    # every planted fault on the completions' first CHOL_PLAIN_M rows, held
+    # to the float64 scan's prefix (a prefix of a scan is the scan of it)
+    lrows, lfaults = _hold_scan(
+        z_c[:CHOL_PLAIN_M].contiguous(), w_c,
+        u_c[:, :CHOL_PLAIN_M].contiguous(), ltake[:, :CHOL_PLAIN_M],
+        lp[:, :CHOL_PLAIN_M], (ltake64[:, :CHOL_PLAIN_M],
+                               lp64[:, :CHOL_PLAIN_M].float()))
+    del lp, ltake64, lp64
     zd, wd, ud = ref.random_inputs(CHOL_DECIDE_M, r, n, SEED + 60_000,
                                    DEVICE)
     decide, decide_faults = _hold_scan(zd, wd, ud,
@@ -855,9 +974,12 @@ def check_cholesky_scan(sp, keys, x, launches):
     resident = ref.flip_gaps(*ops._launch("resident", zd, wd, ud),
                              *ref.cholesky_scan_ref(zd, wd, ud), ud)
     torch.cuda.synchronize()
-    refused = all(f["refused"] for fs in (faults, decide_faults)
-                  for f in fs.values())
-    ok = (gaps["within"] and decide["within"] and resident["within"]
+    refused = all(f["refused"] for fs in (
+        faults, decide_faults, lfaults, full["planted_faults"],
+        lgaps["planted_faults"]) for f in fs.values())
+    ok = (gaps["within"] and full["within"] and lgaps["within"]
+          and lrows["within"]
+          and learned_same and decide["within"] and resident["within"]
           and refused and deterministic and once == 1)
     ms_small = cuda_ms(lambda: ops.cholesky_scan(zs, W, us), reps=3)
     plain_ms = cuda_ms(lambda: ref.cholesky_scan_ref(zs, W, us), reps=1,
@@ -871,17 +993,36 @@ def check_cholesky_scan(sp, keys, x, launches):
             "design": route,
             "launches": launches["cholesky_scan"],
             "launches_by_route": by_route(launches, "cholesky_scan"),
-            "max_abs_err": gaps["max_p_gap"],
+            "max_abs_err": full["max_p_gap"],
+            "max_abs_err_of": f"the first {FLOAT64_DRAWS} draws over all "
+                              f"M rows against the float64 scan",
             "tolerance": f"decisions equal up to each draw's first flip; "
-                         f"before it |p - p_plain| <= {ref.RTOL} |p_plain| + "
-                         f"{ref.ATOL_FRAC} max|p_plain|, at it |u - p_plain| "
-                         f"within the same (excess <= 1); on the main path's "
-                         f"first {CHOL_PLAIN_M} rows and on "
-                         f"{CHOL_DECIDE_M} seeded rows of marginals O(0.1); "
-                         f"every planted fault refused; two calls equal; one "
-                         f"launch a call",
+                         f"before it |p - p_ref| <= {ref.RTOL} |p_ref| + "
+                         f"{ref.ATOL_FRAC} max|p_ref|, at it |u - p_ref| "
+                         f"within the same (excess <= 1); p_ref the float64 "
+                         f"scan's on {FLOAT64_DRAWS} draws over all M rows, "
+                         f"on the main path's first {CHOL_PLAIN_M} rows and "
+                         f"on {FLOAT64_DRAWS} draws of the learned path's "
+                         f"completion wave over all M rows; the float32 "
+                         f"plain scan's on {CHOL_DECIDE_M} seeded rows of "
+                         f"marginals O(0.1); every planted fault refused "
+                         f"(on the main, decision and first {CHOL_PLAIN_M} "
+                         f"learned rows; {', '.join(FULL_M_FAULTS)} over "
+                         f"all M); "
+                         f"two calls equal; one launch a call",
+            "full_m_against_float64": {k: full[k] for k in held + (
+                "draws", "M", "float64_scan_s", "takes", "within",
+                "planted_faults")},
             **{k: gaps[k] for k in held if k != "max_p_gap"},
-            "main_rows_against_float64": vs64,
+            "main_rows_against_float32_plain": vs32,
+            "learned_completions_against_float64": dict(
+                {k: lgaps[k] for k in held + ("draws", "M", "float64_scan_s",
+                                              "takes", "within",
+                                              "planted_faults")},
+                equal_to_the_path_draws=learned_same,
+                first_rows={"M": CHOL_PLAIN_M,
+                            **{k: lrows[k] for k in held + ("within",)},
+                            "planted_faults": lfaults}),
             "decisions": {"shape": {"M": CHOL_DECIDE_M, "N": n, "R": r},
                           **{k: decide[k] for k in held}},
             "resident_decisions": {k: resident[k] for k in
@@ -905,6 +1046,302 @@ def check_cholesky_scan(sp, keys, x, launches):
             "library_ms": None,
             "library": "none (no single PyTorch call)",
             "shape": {"M": m, "N": n, "R": r}}
+
+
+# ------------------------------------------- learning and next-item serving
+LEARN_BASKETS = 4096       # planted baskets: 3,686 to fit, 410 held out
+LEARN_K_MAX = 8
+LEARN_MINIBATCH = 256
+LEARN_STEPS = 20
+LEARN_LR = 1e-5            # V's entries are ~3e-4 at M = 2^20 and Adam moves
+                           # each by ~lr a step: 20 steps keep sigma, and so
+                           # E[#trials], near the main path's ~7.9
+LEARN_ORTHO_TOL = 1e-4     # max |B^T B - I| after the last projection
+LEARN_VB_TOL = 1e-5        # max |cos(v_i, b_j)| over column pairs after
+                           # it: float32 rounding of the projection reads
+                           # ~1e-8, unrelated columns of 2^20 rows ~1e-3
+LEARN_REQUESTS = 64
+SCORED_BASKETS = 8         # held-out baskets scored and ranked
+TOP_K = 10
+GREEDY_K = 10
+
+
+def _constraint_gaps(params) -> tuple:
+    """max |B^T B - I| and the largest |cosine| between a column of V and
+    one of B, max |v_i^T b_j| / (|v_i| |b_j|), in float64."""
+    import torch
+
+    b64, v64 = params.B.double(), params.V.double()
+    eye = torch.eye(b64.shape[1], dtype=torch.float64, device=b64.device)
+    ortho = float((b64.T @ b64 - eye).abs().max())
+    norms = v64.norm(dim=0)[:, None] * b64.norm(dim=0)[None, :]
+    cos = (v64.T @ b64).abs() / norms.clamp_min(1e-300)
+    return ortho, float(cos.max())
+
+
+def _keep_v(params):
+    """A planted fault of the projection: B orthonormalised and sigma made
+    positive as ``project_constraints`` does, V's projection off B
+    skipped.  The gate on the constraints must refuse a fit run with it."""
+    from repro_torch.core.learning import project_constraints
+    from repro_torch.core.types import ONDPPParams
+
+    q = project_constraints(params)
+    return ONDPPParams(V=params.V, B=q.B, sigma=q.sigma)
+
+
+def _step_part_ms(params, k_max: int, mb: int) -> dict:
+    """The device ms of the step's two solver calls, alone at the step's
+    shapes: both slogdets (the minibatch's (mb, k_max, k_max) basket
+    kernels and the 2K x 2K normalizer) forward and backward, and the
+    projection's QR of B."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    a = torch.randn((mb, k_max, k_max), generator=gen, device=DEVICE) * 0.1
+    ly = (a @ a.transpose(-1, -2) + torch.eye(k_max, device=DEVICE)
+          ).requires_grad_(True)
+    k = params.K
+    z = torch.cat([params.V, params.B], 1)
+    lz = (torch.eye(2 * k, device=DEVICE) + z.T @ z).requires_grad_(True)
+
+    def slogdets():
+        s = (torch.linalg.slogdet(ly)[1].sum()
+             + torch.linalg.slogdet(lz)[1])
+        torch.autograd.grad(s, [ly, lz])
+
+    return {"slogdet_ms": cuda_ms(slogdets, reps=5),
+            "qr_ms": cuda_ms(lambda: torch.linalg.qr(params.B), reps=3)}
+
+
+def run_learned(factors):
+    """The learned path at M = 2^20, K = 100 (R = 200): ``planted_baskets``
+    (4,096 baskets of up to 8 items), ``fit_ondpp`` from the main path's
+    ONDPP factors (minibatch 256, 20 AdamW steps, every iterate
+    projected), the constraints after the last step (which must refuse
+    the same fit with V's projection skipped), then the learned
+    kernel served: ``export_spectral``, ``export_sampler`` (kernel 2) and
+    64 requests through an 8-slot rejection engine (kernel 1); a
+    ``NextItemServer``'s scores and top 10 on held-out baskets and
+    ``greedy_map`` (kernel 6 on W_J), a completion wave of one key a SM
+    (kernel 9 on the conditional rows, no observed item taken, mean |Y|
+    within 5 standard errors of tr(K_J)), and MPR against the popularity
+    baseline on the 410 held-out baskets.  Returns the path's launch
+    counts and the inputs for holding kernels 6 and 9 on this path."""
+    import torch
+    from repro_torch import random as trandom
+    from repro_torch.convert import ondpp_params_from_numpy
+    from repro_torch.core import (
+        conditional_inner_matrix,
+        det_ratio_exact,
+        expected_trials,
+        greedy_map,
+        marginal_inner,
+    )
+    from repro_torch.core.learning import (
+        item_frequencies,
+        ondpp_loss,
+        project_constraints,
+    )
+    from repro_torch.core.map_inference import conditional_rows
+    from repro_torch.data.baskets import planted_baskets
+    from repro_torch.serve.next_item import NextItemServer
+    from repro_torch.serve.sampler_engine import SampleRequest, SamplerEngine
+    from repro_torch.train import ndpp as ndpp_mod
+    from repro_torch.train.ndpp import (
+        BasketTrainConfig,
+        export_sampler,
+        export_spectral,
+        fit_ondpp,
+    )
+
+    V, B, D = factors
+    m, k = V.shape
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (tr, te), t_data = timed(lambda: planted_baskets(
+        m, LEARN_BASKETS, k_max=LEARN_K_MAX, seed=SEED, device=DEVICE))
+    init = ondpp_params_from_numpy(V, B, D[np.arange(0, k, 2),
+                                           np.arange(1, k, 2)], device=DEVICE)
+    stamps = []
+    cfg = BasketTrainConfig(steps=LEARN_STEPS, minibatch=LEARN_MINIBATCH,
+                            lr=LEARN_LR, seed=SEED, scan_chunk=1,
+                            log_every=1)
+    t0 = time.perf_counter()
+    res = fit_ondpp(tr, m, k, cfg, init_params=init,
+                    log_fn=lambda _: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    # one log a step, after the step's loss reached the host; the first
+    # interval also holds the projection of the init and its full-batch loss
+    step_s = np.diff([t0] + stamps)
+    losses = [float(x) for x in res.losses]
+    check(len(losses) == LEARN_STEPS and all(map(math.isfinite, losses))
+          and math.isfinite(res.loss_init) and math.isfinite(res.loss_final),
+          f"non-finite fit losses {losses} ({res.loss_init}, "
+          f"{res.loss_final})")
+    check(res.loss_final < res.loss_init,
+          f"the fit did not lower the loss: {res.loss_init} -> "
+          f"{res.loss_final}")
+    params = res.params
+    ortho, vb = _constraint_gaps(params)
+    check(ortho <= LEARN_ORTHO_TOL and vb <= LEARN_VB_TOL
+          and bool((params.sigma >= 0).all()),
+          f"constraints after the fit: max|B^T B - I| {ortho}, max |cos(v_i, "
+          f"b_j)| {vb}, min sigma {float(params.sigma.min())}")
+    # the same fit from the same projected init with V's projection skipped
+    # (``_keep_v`` in place of ``project_constraints``): the gate must
+    # refuse it
+    with swapped((ndpp_mod, "project_constraints", _keep_v)):
+        planted = fit_ondpp(tr, m, k, dataclasses.replace(cfg, log_every=0),
+                            init_params=project_constraints(init))
+    ortho_f, vb_f = _constraint_gaps(planted.params)
+    check(vb_f > LEARN_VB_TOL,
+          f"the constraint gate passed a fit with V's projection skipped: "
+          f"max |cos(v_i, b_j)| {vb_f} <= {LEARN_VB_TOL}")
+    del planted
+    with torch.no_grad():
+        freq = item_frequencies(tr, m)
+        full_loss_ms = cuda_ms(lambda: ondpp_loss(params, tr, freq), reps=3)
+    parts = _step_part_ms(params, LEARN_K_MAX, LEARN_MINIBATCH)
+    warm_ms = float(np.median(step_s[1:])) * 1e3
+    # where a step's device time goes: a 2-step fit from the learned
+    # parameters under the profiler (with its init's projection and two
+    # full-batch losses)
+    profiled = profile_window(lambda: fit_ondpp(
+        tr, m, k, dataclasses.replace(cfg, steps=2, log_every=0),
+        init_params=params))
+
+    sp, t_spec = timed(lambda: export_spectral(params))
+    thm2, exact = float(expected_trials(sp)), float(det_ratio_exact(sp))
+    del sp
+    sampler, t_pre = timed(lambda: export_sampler(params, block=BLOCK))
+    eng = SamplerEngine(sampler, n_slots=N_SLOTS)
+    for rid in range(LEARN_REQUESTS):
+        eng.submit(SampleRequest(rid=rid, seed=SEED + 70_000 + rid))
+    out, t_serve = timed(eng.run)
+    ticks = eng.ticks
+    check(sorted(out) == list(range(LEARN_REQUESTS)),
+          f"learned engine returned {len(out)} of {LEARN_REQUESTS}")
+    max_trials = SampleRequest(rid=0).max_trials
+    bad = [rid for rid, r in out.items()
+           if not valid_result(r, m, max_trials)]
+    check(not bad, f"invalid learned-kernel results for rids {bad[:10]}")
+    mean_trials = float(np.mean([r.trials for r in out.values()]))
+    check(0.5 * exact <= mean_trials <= 2.0 * exact,
+          f"learned kernel: mean trials {mean_trials} outside [0.5, 2] x "
+          f"det_ratio_exact {exact}")
+    del sampler, eng
+
+    srv = NextItemServer(params)
+    scored = []
+    for i in range(SCORED_BASKETS):
+        basket = te.items[i][te.mask[i] > 0].tolist()
+        s = srv.scores(basket)
+        top = srv.top_k(basket, TOP_K)
+        fin = torch.isfinite(s)
+        ok = (bool(torch.isneginf(s[basket]).all())
+              and int(fin.sum()) == m - len(basket)
+              and len(top) == TOP_K and not set(top.tolist()) & set(basket)
+              and float(s[int(top[0])]) == float(s[fin].max()))
+        check(ok, f"held-out basket {i} {basket}: scores or top-{TOP_K} "
+                  f"{top.tolist()} malformed")
+        scored.append({"basket": basket, "top": top.tolist()})
+    basket = scored[0]["basket"]
+    scores_ms = cuda_ms(lambda: srv.scores(basket), reps=5)
+    picks, t_greedy = timed(lambda: greedy_map(srv.params, GREEDY_K))
+    picks = picks.tolist()
+    check(len(set(picks)) == GREEDY_K and all(0 <= i < m for i in picks),
+          f"greedy_map picks {picks}")
+    keys = trandom.split(trandom.PRNGKey(SEED + 80_000, device=DEVICE), n_sm)
+    many, t_wave = timed(lambda: srv.complete_many(
+        basket, trandom.PRNGKey(SEED + 80_000, device=DEVICE), n_sm))
+    check(len(many) == n_sm and not any(set(c.tolist()) & set(basket)
+                                        for c in many),
+          "a completion took an observed item")
+    obs, obs_mask = srv._pad(basket)
+    z_c, w_marg = conditional_rows(srv._z, srv._x, obs, obs_mask)
+    w64 = marginal_inner(z_c.double(), conditional_inner_matrix(
+        srv._z[obs.clamp_min(0)], obs_mask, srv._x).double())
+    kg = w64 @ (z_c.double().T @ z_c.double())
+    expect = float(torch.trace(kg))
+    var = expect - float(torch.trace(kg @ kg))
+    sizes = np.array([c.size for c in many], np.float64)
+    se = math.sqrt(max(var, 0.0) / sizes.size)
+    check(abs(float(sizes.mean()) - expect) <= 5 * se,
+          f"completions: mean |Y| {sizes.mean()} not within 5 standard "
+          f"errors ({se}) of tr(K_J) {expect}")
+    rep, t_mpr = timed(lambda: srv.evaluate_mpr(
+        te, trandom.PRNGKey(SEED + 90_000, device=DEVICE), train=tr))
+    check(all(map(math.isfinite, (rep.model, rep.frequency))),
+          f"MPR {rep.model}, baseline {rep.frequency}")
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("block_outer_sums", "descend_score", "bilinear",
+                 "cholesky_scan"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the learned path")
+    w_j = conditional_inner_matrix(srv._z[obs.clamp_min(0)], obs_mask,
+                                   srv._x).contiguous()
+    emit({"learned": {
+        "M": m, "K": k, "R": 2 * k, "baskets": {
+            "train": int(tr.items.shape[0]), "test": int(te.items.shape[0]),
+            "k_max": LEARN_K_MAX, "data_s": t_data},
+        "fit": {"steps": LEARN_STEPS, "minibatch": LEARN_MINIBATCH,
+                "lr": LEARN_LR, "losses": losses,
+                "loss_init": res.loss_init, "loss_final": res.loss_final,
+                "improvement": res.improvement, "fit_s": t_fit,
+                "step_ms": [float(x) * 1e3 for x in step_s],
+                "first_step_ms": float(step_s[0]) * 1e3,
+                "first_step_holds": "the init's projection and its "
+                                    "full-batch loss",
+                "full_batch_loss_ms": full_loss_ms,
+                "warm_step_ms": warm_ms, **parts,
+                "slogdet_share": parts["slogdet_ms"] / warm_ms,
+                "qr_share": parts["qr_ms"] / warm_ms,
+                "parts_of": "each timed alone at the step's shapes",
+                "profiled_2_step_fit": profiled},
+        "constraints": {"max_btb_minus_i": ortho,
+                        "btb_bound": LEARN_ORTHO_TOL,
+                        "max_cos_v_b": vb, "cos_bound": LEARN_VB_TOL,
+                        "min_sigma": float(params.sigma.min()),
+                        "v_projection_skipped": {
+                            "max_btb_minus_i": ortho_f, "max_cos_v_b": vb_f,
+                            "refused": vb_f > LEARN_VB_TOL}},
+        "export": {"spectral_s": t_spec, "sampler_s": t_pre,
+                   "expected_trials": thm2, "det_ratio_exact": exact},
+        "serve": {"requests": LEARN_REQUESTS, "n_slots": N_SLOTS,
+                  "serve_s": t_serve, "ticks": ticks,
+                  "mean_trials": mean_trials,
+                  "accepted": int(sum(r.accepted for r in out.values())),
+                  "mean_subset_size": float(np.mean(
+                      [int(np.sum(r.mask)) for r in out.values()]))},
+        "next_item": {"scored_baskets": scored, "scores_ms": scores_ms,
+                      "greedy_map": {"k": GREEDY_K, "s": t_greedy,
+                                     "items": picks},
+                      "completions": {"basket": basket, "draws": n_sm,
+                                      "wave_s": t_wave,
+                                      "mean_size": float(sizes.mean()),
+                                      "expected_size": expect,
+                                      "size_standard_error": se},
+                      "mpr": {"model": rep.model,
+                              "frequency": rep.frequency,
+                              "lift": rep.lift, "baskets": rep.n_baskets,
+                              "s": t_mpr}},
+        "peak_device_gb": peak / 1e9, "launches": launches}})
+    u = trandom.uniform(keys[:FLOAT64_DRAWS], (m,))
+    return launches, {
+        "bilinear": (srv._z, w_j),
+        "cholesky_scan": (z_c, w_marg, u, many[:FLOAT64_DRAWS])}
 
 
 # ------------------------------------------------------- the dynamic catalog
@@ -1635,10 +2072,12 @@ def check_bilinear_batched(sampler, descents, leaf, launches):
             "shape": {"N": n, "B": b, "R": r}}
 
 
-def check_bilinear(sp, mesh, launches):
+def check_bilinear(sp, mesh, launches, learned):
     """Kernel 6 on the catalog's rows and X (the sharded path's item
     qualities) at M = 2^20 and at a shard's M/2, in float32 and bfloat16,
-    against its plain version; bilinear_sharded bit-equal to bilinear."""
+    and on the learned path's rows Z = [V, B] and nonsymmetric W_J of a
+    held-out basket (its next-item scores), against its plain version;
+    bilinear_sharded bit-equal to bilinear."""
     import torch
     from repro_torch.kernels.bilinear import ops, ref
 
@@ -1674,6 +2113,10 @@ def check_bilinear(sp, mesh, launches):
     full = with_ratio(one(Z, W, 10))
     half = with_ratio(one(Z[:m // 2], W, 10))
     bf16 = with_ratio(one(Z.bfloat16(), W.bfloat16(), 10))
+    z_l, w_l = learned
+    on_w_j = with_ratio(one(z_l, w_l, 5))
+    on_w_j["w_j_asymmetry"] = float((w_l - w_l.T).abs().max()
+                                    / w_l.abs().max())
     sharded_equal = bool(torch.equal(ops.bilinear_sharded(Z, W, mesh),
                                      ops.bilinear(Z, W)))
     return {"name": "bilinear", "route": "cuda",
@@ -1686,12 +2129,13 @@ def check_bilinear(sp, mesh, launches):
                          "the resident route",
             "bilinear_sharded_bit_equal": sharded_equal,
             "ok": (full["ok"] and half["ok"] and bf16["ok"]
-                   and sharded_equal),
+                   and on_w_j["ok"] and sharded_equal),
             "ms": full["ms"], "plain_ms": full["plain_ms"],
             "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
             "library_ms": full["library_ms"],
             "library": "((Z @ W) * Z).sum(-1), two calls",
-            "shape": {"M": m, "R": r}, "at_half_M": half, "bfloat16": bf16}
+            "shape": {"M": m, "R": r}, "at_half_M": half, "bfloat16": bf16,
+            "learned_w_j": on_w_j}
 
 
 # ------------------------------------------------- the LM template's train path
@@ -2790,8 +3234,10 @@ def main() -> int:
                check_descend_score(sampler, captured, by_path["main_path"],
                                    descend_traced)]
     by_path["cholesky"], chol_keys, chol_x = run_cholesky(sampler)
+    by_path["learned"], learned = run_learned(factors)
     entries.append(check_cholesky_scan(sampler.sp, chol_keys, chol_x,
-                                       by_path["cholesky"]))
+                                       by_path["cholesky"],
+                                       learned.pop("cholesky_scan")))
     del chol_keys, chol_x
     gc.collect()
     torch.cuda.empty_cache()
@@ -2819,7 +3265,7 @@ def main() -> int:
     entries.append(check_score_all(sp, mcmc_captured,
                                    by_path["mcmc"]["score_all"]))
     sharded["mcmc"], mcmc_counts = run_sharded_mcmc(sp, mcmc_out)
-    entries.append(check_bilinear(sp, mesh2, None))
+    entries.append(check_bilinear(sp, mesh2, None, learned.pop("bilinear")))
     # the sharded path's launches: its rejection, catalog and MCMC runs
     runs = [c for counts in (rej_counts, cat_counts, mcmc_counts)
             for c in counts.values()]
@@ -2835,7 +3281,7 @@ def main() -> int:
         for n in SHARD_COUNTS)
     sharded["launches"] = by_path["sharded"]
     emit({"sharded": sharded})
-    del sp, mesh2
+    del sp, mesh2, learned
     gc.collect()
     torch.cuda.empty_cache()
 

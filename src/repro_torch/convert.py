@@ -6,7 +6,8 @@ numpy), so that both sample from bit-identical state and their draws can be
 compared key for key.  ``catalog_state_from_numpy`` does the same for a
 dynamic catalog's ``CatalogState`` and ``mcmc_states_from_numpy`` for a pool
 of MCMC chains; ``params_from_numpy`` carries the factors of
-``L = V V^T + B (D - D^T) B^T``.
+``L = V V^T + B (D - D^T) B^T``, ``ondpp_params_from_numpy`` those of an
+ONDPP and ``baskets_from_numpy`` a set of padded baskets.
 """
 from __future__ import annotations
 
@@ -16,10 +17,11 @@ import numpy as np
 import torch
 
 from .core.dynamic import DualProposal
+from .core.learning import Baskets
 from .core.mcmc import MCMCState
 from .core.rejection import NDPPSampler
 from .core.tree import SampleTree
-from .core.types import NDPPParams, SpectralNDPP
+from .core.types import NDPPParams, ONDPPParams, SpectralNDPP
 from .device import DeviceLike, resolve_device
 from .models.config import ModelConfig
 from .models.model import LM, layer_descriptors
@@ -90,6 +92,23 @@ def params_from_numpy(V, B, D, device: DeviceLike = None) -> NDPPParams:
     """NDPPParams with float32 tensors on ``device`` (default ``cuda``)."""
     dev = resolve_device(device)
     return NDPPParams(V=_f32(V, dev), B=_f32(B, dev), D=_f32(D, dev))
+
+
+def ondpp_params_from_numpy(V, B, sigma, device: DeviceLike = None
+                            ) -> ONDPPParams:
+    """ONDPPParams with float32 tensors on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    return ONDPPParams(V=_f32(V, dev), B=_f32(B, dev),
+                       sigma=_f32(sigma, dev))
+
+
+def baskets_from_numpy(items, mask, device: DeviceLike = None) -> Baskets:
+    """Padded baskets: items (n, k_max) as int64 and mask (n, k_max) as
+    float32 on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    return Baskets(
+        items=torch.from_numpy(np.array(items, np.int64)).to(dev),
+        mask=_f32(mask, dev))
 
 
 # ------------------------------------------------------------ LM template

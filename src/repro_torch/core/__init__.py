@@ -2,8 +2,13 @@
 sampler, the proposal tree, the rejection samplers (sequential and
 speculative), the fixed-size k-NDPP sampler, the dynamic-catalog proposal
 and the MCMC chains, the tree-based ones unsharded or item-sharded over a
-mesh."""
-from .bilinear import bilinear_scores, bilinear_scores_fast  # noqa: F401
+mesh; ONDPP learning, greedy MAP and conditioning."""
+from .bilinear import (  # noqa: F401
+    bilinear_scores,
+    bilinear_scores_fast,
+    conditional_inner_matrix,
+    conditional_scores,
+)
 from .cholesky import (  # noqa: F401
     marginal_inner,
     marginal_inner_from_params,
@@ -29,6 +34,24 @@ from .kdpp import (  # noqa: F401
     sample_fixed_size_e,
     sample_k_ndpp,
     sample_kdpp,
+)
+from .learning import (  # noqa: F401
+    Baskets,
+    init_ndpp,
+    init_ondpp,
+    item_frequencies,
+    log_normalizer,
+    ndpp_loss,
+    ondpp_loss,
+    project_constraints,
+    symmetric_dpp_loss,
+)
+from .map_inference import (  # noqa: F401
+    conditional_sample,
+    greedy_map,
+    mean_percentile_rank,
+    mpr_frequency_baseline,
+    next_item_scores,
 )
 from .mcmc import (  # noqa: F401
     MCMCSample,
@@ -82,6 +105,7 @@ from .tree import (  # noqa: F401
 )
 from .types import (  # noqa: F401
     NDPPParams,
+    ONDPPParams,
     SpectralNDPP,
     d_from_sigma,
     dense_l,
@@ -92,6 +116,7 @@ from .types import (  # noqa: F401
 from .youla import (  # noqa: F401
     spectral_from_params,
     spectral_from_transform,
+    youla_decompose,
     youla_decompose_np,
     youla_transform_np,
 )

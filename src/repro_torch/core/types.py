@@ -37,6 +37,32 @@ class NDPPParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class ONDPPParams:
+    """Orthogonality-constrained NDPP (Section 5; the reference's
+    ``ONDPPParams``, ``repro/core/types.py:66``).
+
+    ``D - D^T`` is block-diagonal with ``[[0, s], [-s, 0]]`` blocks built
+    from ``sigma`` (K/2,), nonnegative.  The learner keeps ``B^T B = I`` and
+    ``V^T B = 0`` by projection (``core/learning.py::project_constraints``).
+    """
+
+    V: torch.Tensor      # (M, K)
+    B: torch.Tensor      # (M, K)
+    sigma: torch.Tensor  # (K // 2,)
+
+    @property
+    def M(self) -> int:
+        return self.V.shape[0]
+
+    @property
+    def K(self) -> int:
+        return self.V.shape[1]
+
+    def to_general(self) -> NDPPParams:
+        return NDPPParams(self.V, self.B, d_from_sigma(self.sigma))
+
+
+@dataclasses.dataclass(frozen=True)
 class SpectralNDPP:
     """Spectral form ``L = Z X Z^T`` with Z = [V, y_1..y_K] (M x 2K) and
     sigma (K/2,) the nonnegative Youla eigenvalues of the skew part."""

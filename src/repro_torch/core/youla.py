@@ -68,6 +68,15 @@ def youla_decompose_np(B, D) -> Tuple[np.ndarray, np.ndarray]:
     return sig, y
 
 
+def youla_decompose(B: torch.Tensor, D: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``youla_decompose_np`` as tensors in B's dtype on B's device (sigma
+    (K/2,), Y (M, K)), as the reference's ``youla_decompose``."""
+    sig, y = youla_decompose_np(B, D)
+    return (torch.as_tensor(sig, dtype=B.dtype).to(B.device),
+            torch.as_tensor(y, dtype=B.dtype).to(B.device))
+
+
 def spectral_from_params(V, B, D, *, device: DeviceLike = None
                          ) -> SpectralNDPP:
     """Spectral form Z = [V, Y], sigma (Section 4.1) as float32 tensors on

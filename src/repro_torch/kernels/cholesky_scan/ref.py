@@ -28,17 +28,27 @@ def cholesky_scan_ref(Z: torch.Tensor, W: torch.Tensor, u: torch.Tensor):
     q = W.expand(n, r, r).clone()
     take = torch.empty((n, m), dtype=torch.bool, device=Z.device)
     p_out = torch.empty((n, m), dtype=Z.dtype, device=Z.device)
-    for i in range(m):
+    scan_rows_(q, Z, u, take, p_out)
+    return take, p_out
+
+
+def scan_rows_(q: torch.Tensor, Z: torch.Tensor, u: torch.Tensor,
+               take: torch.Tensor, p_out: torch.Tensor) -> None:
+    """``cholesky_scan_ref``'s steps over the rows of Z (M, R) from the
+    states q (N, R, R), which it downdates in place, writing the decisions
+    and marginals into take and p_out (N, M).  The step touches only
+    tensors it is given, so a run of steps can be captured in a CUDA graph
+    and replayed along a long scan (``chip_smoke.py``'s float64 scan)."""
+    for i in range(Z.shape[0]):
         z = Z[i]
         qz = q @ z                                        # (N, R)
         zq = z @ q                                        # (N, R)
         p = qz @ z                                        # (N,)
         t = u[:, i] < p
         denom = torch.where(t, p.clamp_min(EPS), (p - 1.0).clamp_max(-EPS))
-        q = q - qz[:, :, None] * zq[:, None, :] / denom[:, None, None]
+        q.sub_(qz[:, :, None] * zq[:, None, :] / denom[:, None, None])
         take[:, i] = t
         p_out[:, i] = p
-    return take, p_out
 
 
 def _decide(g: torch.Tensor, u: torch.Tensor, pivot_p: bool = False):

@@ -229,7 +229,7 @@ def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
 
 
 def randint(keys: torch.Tensor, shape: Shape, minval: int,
-            maxval: int) -> torch.Tensor:
+            maxval: Union[int, torch.Tensor]) -> torch.Tensor:
     """``jax.random.randint`` (int32) per key: (..., 2) -> (..., *shape)
     int64 values in [minval, maxval).
 
@@ -239,16 +239,29 @@ def randint(keys: torch.Tensor, shape: Shape, minval: int,
     wrapping uint32 arithmetic (``2^32 % span`` taken as
     ``((2^16 % span)^2) % span``, the square wrapping too).
     ``maxval <= minval`` returns ``minval``.
+
+    ``maxval`` may be an integer tensor broadcastable to
+    ``keys.shape[:-1] + shape``: each key then draws below its own bound,
+    as ``jax.vmap`` of the reference over keys and bounds does (its values
+    are int32 by type, so they need no range check).
     """
     lo_i32, hi_i32 = -(1 << 31), (1 << 31) - 1
-    if not (lo_i32 <= minval <= hi_i32 and lo_i32 <= maxval <= hi_i32):
+    tensor_max = isinstance(maxval, torch.Tensor)
+    if not (lo_i32 <= minval <= hi_i32
+            and (tensor_max or lo_i32 <= maxval <= hi_i32)):
         raise OverflowError(f"randint bounds [{minval}, {maxval}) must fit "
                             f"int32, as the reference's default dtype")
     k = split(keys)
     higher = random_bits(k[..., 0, :], shape)
     lower = random_bits(k[..., 1, :], shape)
-    span = (maxval - minval) & _MASK if maxval > minval else 1
-    mult = ((((1 << 16) % span) ** 2) & _MASK) % span
+    if tensor_max:
+        mx = maxval.to(device=keys.device, dtype=torch.int64)
+        span = torch.where(mx > minval, (mx - minval) & _MASK,
+                           torch.ones_like(mx))
+        mult = ((((1 << 16) % span) ** 2) & _MASK) % span
+    else:
+        span = (maxval - minval) & _MASK if maxval > minval else 1
+        mult = ((((1 << 16) % span) ** 2) & _MASK) % span
     offset = (((higher % span) * mult) & _MASK) + lower % span
     offset = (offset & _MASK) % span
     # int32 addition, wrapping as the reference's does

@@ -1218,3 +1218,146 @@ def test_samplers_on_kernel_1_and_6_match_cpu(cuda):
     assert bilinear_ops.launches - before == int(e_mask.sum())
     want, _ = sample_elementary_dense(cpu.tree.W, e_mask, trandom.PRNGKey(2))
     assert torch.equal(items.cpu(), want)
+
+
+# ------------------------------------------- learning and next-item serving
+def _learned_inputs(m, k, seed, device):
+    """Planted baskets over m items and an ONDPP init, on ``device``."""
+    from repro_torch.core.learning import init_ondpp
+    from repro_torch.data.baskets import planted_baskets
+
+    tr, te = planted_baskets(m, 200, k_max=6, seed=seed, n_topics=4,
+                             device=device)
+    return tr, te, init_ondpp(trandom.PRNGKey(seed), m, k, device=device)
+
+
+def test_basket_fit_step_on_card_matches_cpu(cuda):
+    """One Eq. 14 step on the card (slogdet of the basket Grams and of the
+    2K x 2K normalizer, the QR of the projection) against the CPU step:
+    loss and gradients within rtol 1e-4, then three fitted steps' losses."""
+    from repro_torch.core.learning import item_frequencies, ondpp_loss
+    from repro_torch.core.types import ONDPPParams
+    from repro_torch.train.ndpp import BasketTrainConfig, fit_ondpp
+
+    m, k = 96, 8
+    tr, _, init = _learned_inputs(m, k, 3, "cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).clone().requires_grad_(True)
+                  for t in (init.V, init.B, init.sigma)]
+        b = type(tr)(tr.items.to(dev), tr.mask.to(dev))
+        loss = ondpp_loss(ONDPPParams(*leaves), b, item_frequencies(b, m))
+        out[str(dev)] = [loss.detach().cpu()] + [
+            g.cpu() for g in torch.autograd.grad(loss, leaves)]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+    cfg = BasketTrainConfig(steps=3, minibatch=32, lr=0.01, seed=1)
+    want = fit_ondpp(tr, m, k, cfg, init_params=init)
+    got = fit_ondpp(type(tr)(tr.items.to(cuda), tr.mask.to(cuda)), m, k,
+                    cfg, init_params=ONDPPParams(*(t.to(cuda) for t in (
+                        init.V, init.B, init.sigma))))
+    assert got.params.V.device.type == "cuda"
+    np.testing.assert_allclose(got.losses, want.losses, rtol=1e-4)
+
+
+def test_next_item_scores_on_kernel_6(cuda):
+    """``next_item_scores`` at R = 200 scores all rows in one launch of
+    ``bilinear`` on its resident route, against ``bilinear_ref`` on the
+    same rows and the same nonsymmetric W_J (1e-4 of the largest score);
+    observed items read -inf; ``greedy_map`` launches it once a pick."""
+    from repro_torch.core.bilinear import conditional_inner_matrix
+    from repro_torch.core.map_inference import _zx, greedy_map, next_item_scores
+    from repro_torch.core.types import NDPPParams
+
+    m, k = 4097, 100
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    p = NDPPParams(*(torch.randn(s, generator=gen, device=cuda) * c
+                     for s, c in (((m, k), 0.05), ((m, k), 0.05),
+                                  ((k, k), 1.0))))
+    obs = torch.tensor([7, 300, 4096, -1, -1], device=cuda)
+    mask = torch.tensor([1.0, 1.0, 1.0, 0.0, 0.0], device=cuda)
+    before = (bilinear_ops.launches, bilinear_ops.resident_launches)
+    got = next_item_scores(p, obs, mask)
+    assert (bilinear_ops.launches, bilinear_ops.resident_launches) == (
+        before[0] + 1, before[1] + 1)
+    z, x = _zx(p)
+    w = conditional_inner_matrix(z[obs.clamp_min(0)], mask, x)
+    assert float((w - w.T).abs().max()) > 1e-3 * float(w.abs().max())
+    want = bilinear_ref(z, w)
+    taken = torch.zeros(m, dtype=torch.bool, device=cuda)
+    taken[obs[:3]] = True
+    assert bool(torch.isneginf(got[taken]).all())
+    assert bool(torch.isfinite(got[~taken]).all())
+    torch.testing.assert_close(got[~taken], want[~taken], rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    before = bilinear_ops.launches
+    picks = greedy_map(p, 4)
+    assert bilinear_ops.launches - before == 4
+    assert len(set(picks.tolist())) == 4
+
+
+def test_conditional_sample_on_kernel_9(cuda):
+    """A conditional completion wave at R = 200 is one launch of the
+    Cholesky scan on the conditional rows and inner matrix, held to the
+    plain scan on the same inputs by the flip rule; the observed rows are
+    zero and never taken."""
+    from repro_torch.core.map_inference import (
+        _zx,
+        conditional_rows,
+        conditional_sample,
+    )
+    from repro_torch.core.types import NDPPParams
+
+    m, k, n = 2000, 100, 16
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    p = NDPPParams(*(torch.randn(s, generator=gen, device=cuda) * c
+                     for s, c in (((m, k), 0.04), ((m, k), 0.04),
+                                  ((k, k), 1.0))))
+    obs = torch.tensor([3, 999, 1500], device=cuda)
+    mask = torch.ones(3, device=cuda)
+    keys = trandom.split(trandom.PRNGKey(12, device=cuda), n)
+    before = scan_ops.launches
+    take = conditional_sample(p, obs, mask, keys)
+    assert scan_ops.launches == before + 1 and take.shape == (n, m)
+    assert not bool(take[:, obs].any()) and bool(take.any())
+    z_c, w = conditional_rows(*_zx(p), obs, mask)
+    u = trandom.uniform(keys, (m,))
+    kt, kp = scan_ops.cholesky_scan(z_c, w, u)
+    assert torch.equal(kt, take)
+    gaps = flip_gaps(kt, kp, *cholesky_scan_ref(z_c, w, u), u)
+    assert gaps["within"], gaps
+
+
+def test_next_item_server_on_card_matches_cpu(cuda):
+    """``NextItemServer`` end to end at a small M on the card (kernels 6
+    and 9) against the same server on the CPU: scores within 1e-4 of the
+    largest, top-k, completions and both MPRs equal."""
+    from repro_torch.core.types import ONDPPParams
+    from repro_torch.serve.next_item import NextItemServer
+
+    m, k = 512, 8
+    _, te, init = _learned_inputs(m, k, 4, "cpu")
+    cpu = NextItemServer(init)
+    card = NextItemServer(ONDPPParams(*(t.to(cuda) for t in (
+        init.V, init.B, init.sigma))))
+    basket = [int(i) for i in te.items[0][te.mask[0] > 0]]
+    s_card, s_cpu = card.scores(basket).cpu(), cpu.scores(basket)
+    fin = torch.isfinite(s_cpu)
+    assert torch.equal(torch.isfinite(s_card), fin)
+    torch.testing.assert_close(s_card[fin], s_cpu[fin], rtol=0,
+                               atol=1e-4 * float(s_cpu[fin].abs().max()))
+    assert np.array_equal(card.top_k(basket, 10), cpu.top_k(basket, 10))
+    before = scan_ops.launches
+    many = card.complete_many(basket, trandom.PRNGKey(3), 8)
+    assert scan_ops.launches == before + 1
+    for got, want in zip(many, cpu.complete_many(basket, trandom.PRNGKey(3),
+                                                  8)):
+        assert np.array_equal(got, want) and not set(got) & set(basket)
+    before = bilinear_ops.launches
+    rep = card.evaluate_mpr(type(te)(te.items.to(cuda), te.mask.to(cuda)),
+                            trandom.PRNGKey(7))
+    assert bilinear_ops.launches - before == te.items.shape[0]
+    want = cpu.evaluate_mpr(te, trandom.PRNGKey(7))
+    np.testing.assert_allclose(rep.model, want.model, rtol=1e-6)
+    np.testing.assert_allclose(rep.frequency, want.frequency, rtol=1e-6)
