@@ -16,7 +16,25 @@ kernel against its plain PyTorch version on the card:
    warm requests; every result is checked, and the kernels' launch counts
    are read around this run only -> one ``{"main_path": ...}`` line (every
    later phase sets the counts to 0 before it and reads them after it);
-3. the Cholesky sampler (Alg. 1) on the main path's state:
+3. the admission scheduler and the front door on the main path's sampler,
+   nothing cut: a ``Scheduler`` over a rejection pool (8 slots, n_spec 8)
+   and an MCMC pool (8 slots, k = 8) sharing one ``Telemetry``, replaying
+   on the wall clock a trace of 256 requests made with numpy from the seed
+   (exponential gaps at 200 requests/s, priorities 0-2, a quarter with
+   deadlines of 50-500 ms, 32 pinned to the MCMC pool; a queue of 64 that
+   evicts when full): every rid terminal exactly once, every shed by a
+   known reason with its flight event and span, every done draw equal to
+   a direct engine submission of the same (rid, seed), mean trials within
+   [0.5, 2] x exact; then 64 requests through an engine with telemetry and
+   one without, equal per rid, with the same ticks, device-to-host copies
+   and kernel launches (kernel 1's and all) by the profiler's events; then
+   64 requests through the asyncio ``FrontDoor`` and 8 ``POST
+   /v1/sample`` calls through ``serve_http`` on 127.0.0.1, each equal to
+   direct submission, and ``GET /v1/metrics`` exposing the engine's and
+   the scheduler's instruments -> ``{"serve": ...}`` (requests/s direct,
+   through the front door and through HTTP, queue-wait, latency, service
+   and tick p50 / p99 from the telemetry, shed counts by reason);
+4. the Cholesky sampler (Alg. 1) on the main path's state:
    ``sample_cholesky_spectral`` on one key a SM (one draw a CTA of the
    ``cholesky_scan`` kernel) and on one key (equal to the wave's row 0),
    mean |Y| within 5 standard errors of E|Y| = tr(W Z^T Z), then the
@@ -24,7 +42,7 @@ kernel against its plain PyTorch version on the card:
    requests and a ``sample_k_ndpp`` of size 10 (``descend_score``), one
    ``sample_elementary_dense`` draw (``bilinear`` over all 2^20 rows a
    step) -> ``{"cholesky": ...}``;
-4. the learned path at the same width, nothing cut: ``planted_baskets``
+5. the learned path at the same width, nothing cut: ``planted_baskets``
    (4,096 baskets of up to 8 items over the 2^20 items, 410 held out),
    ``fit_ondpp`` from the main path's factors (20 AdamW steps of 256
    baskets, each iterate projected; every loss finite, the last full-batch
@@ -39,20 +57,21 @@ kernel against its plain PyTorch version on the card:
    (``cholesky_scan``; no observed item taken, mean |Y| within 5 standard
    errors of tr(K_J)) and MPR against the popularity baseline on the
    held-out baskets -> ``{"learned": ...}``;
-5. the dynamic catalog at the same width: a ``Catalog`` of the main path's
+6. the dynamic catalog at the same width: a ``Catalog`` of the main path's
    factors with 2^20 rows of capacity and 2^20 - 4,096 live items
-   (staleness 1), four timed mutation batches (insert 2,048 items into the
-   slack, update 1,024, delete 1,024 with the snapshot deferred, refresh),
-   the maintained tree held ``torch.equal`` to a full rebuild, then an
+   (staleness 1) and a ``Telemetry`` (one flight event and one count a
+   mutation batch, checked), four timed mutation batches (insert 2,048
+   items into the slack, update 1,024, delete 1,024 with the snapshot
+   deferred, refresh), the maintained tree held ``torch.equal`` to a full rebuild, then an
    8-slot engine serving 64 cold and 64 timed requests with a
    ``swap_catalog`` to a further-deleted version after its first tick:
    pre-swap requests must equal an engine that never swapped, and no
    request may draw an item deleted in its version -> ``{"catalog": ...}``;
-6. the MCMC backend on the main path's spectral state: fixed-size chains
+7. the MCMC backend on the main path's spectral state: fixed-size chains
    (k = 8, the main path's mean |Y|) from stochastic-greedy starts, 8
    slots, 64 requests, each result 8 distinct items with det(L_Y) > 0
    -> ``{"mcmc": ...}``;
-7. item-axis sharding at the same width on meshes of S = 1 and S = 2
+8. item-axis sharding at the same width on meshes of S = 1 and S = 2
    shards (both on the one card, or on two cards where the host has
    them): 64 rejection requests through ``SamplerEngine(mesh=)`` per S
    (S = 1 and S = 2 equal per rid, valid, mean trials against
@@ -64,7 +83,7 @@ kernel against its plain PyTorch version on the card:
    ``torch.equal`` to a sharded rebuild and to the unsharded catalog's
    tree; 16 requests equal at S = 1 and 2) and 16 MCMC requests (S = 1
    and 2 equal) -> one ``{"sharded": ...}`` line;
-8. the LM template's training path, with the NDPP phases' memory freed:
+9. the LM template's training path, with the NDPP phases' memory freed:
    qwen3-1.7b at full width and depth (28 layers, d_model 2,048, GQA 16 /
    8 heads of 128, vocab 151,936, bfloat16, 2.03 B parameters) from the
    port's seeded init, AdamW with the reference defaults, ``lm_batch`` at
@@ -82,7 +101,7 @@ kernel against its plain PyTorch version on the card:
    of the flash kernels, step 0's loss, grad norm and every gradient leaf
    on the same params against the kernels', then the witness's own
    steps' losses and grad norms against the kernel run's;
-9. the SSM training path, with the qwen3 phase's memory freed:
+10. the SSM training path, with the qwen3 phase's memory freed:
    mamba2-1.3b at full width and depth (48 FFN-less Mamba2 layers, d_model
    2,048, d_inner 4,096, 64 heads of P = 64, state N = 128, chunk 128,
    vocab 50,280, bfloat16, 1.44 B parameters) through the same steps at
@@ -95,7 +114,7 @@ kernel against its plain PyTorch version on the card:
    that runs ``ssd_chunked_ref`` under autograd in place of the kernels,
    both paths in float32 (bf16 rounding alone moves mamba2's step-0
    gradients by more than the witness's tolerance: how far is a reading);
-10. each kernel against its plain version at its path's shapes, on inputs
+11. each kernel against its plain version at its path's shapes, on inputs
    the paths themselves produced (the main path's tree rows and first
    round's projectors and uniforms; the catalog's update batch; the greedy
    start's score matrices; the sharded descent's leaf blocks and
@@ -138,7 +157,7 @@ kernel against its plain PyTorch version on the card:
    every float32 operand a bf16 pair hi + lo, two calls equal) with the
    float32 SIMT kernel, the other route, timed beside it on the same
    inputs (the forward's chunk-start states held to the SIMT kernel's);
-11. the last line: ``{"ok": true, "device": {...}}``.
+12. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero (an exception's traceback, or a FAIL line)
 before the last line: no GPU, a build or launch error, a parity miss, an
@@ -147,6 +166,7 @@ launches on the card this runs on; every number is this run's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -497,6 +517,432 @@ def run_main_path():
     return sampler, captured, launches, (V, B, D), out
 
 
+# ------------------------------------------------------ the front door
+SERVE_REQUESTS = 256       # the replayed trace's requests
+SERVE_RATE = 200.0         # arrivals a second, above the 60-217 requests/s
+                           # the engine sustains: the queue fills
+SERVE_MCMC = 32            # of them pinned to the "mcmc" pool
+SERVE_MAX_QUEUE = 64
+SERVE_DEADLINE_FRAC = 0.25
+SERVE_DEADLINE_S = (0.05, 0.5)
+SERVE_N_SPEC = 8
+SERVE_AB_REQUESTS = 64     # the telemetry A/B's and the FrontDoor's
+SERVE_HTTP_REQUESTS = 8
+SERVE_TIMEOUT_S = 300.0    # the bound of every wait in the phase
+
+
+def serve_trace(seed: int) -> list:
+    """The replayed trace, made with numpy from ``seed``: (arrival s, rid,
+    seed, priority, deadline s after submission or None, pool) by arrival.
+    Exponential gaps at SERVE_RATE, priorities {0, 1, 2}, a quarter of the
+    requests with deadlines of 50-500 ms, SERVE_MCMC pinned to "mcmc" and
+    the rest to "rejection"."""
+    rng = np.random.default_rng(seed)
+    t = np.cumsum(rng.exponential(1.0 / SERVE_RATE, SERVE_REQUESTS))
+    prio = rng.integers(0, 3, SERVE_REQUESTS)
+    has_deadline = rng.random(SERVE_REQUESTS) < SERVE_DEADLINE_FRAC
+    deadline = rng.uniform(*SERVE_DEADLINE_S, SERVE_REQUESTS)
+    mcmc = set(rng.choice(SERVE_REQUESTS, SERVE_MCMC, replace=False).tolist())
+    seeds = rng.integers(0, 2 ** 31, SERVE_REQUESTS)
+    return [(float(t[i]), i, int(seeds[i]), int(prio[i]),
+             float(deadline[i]) if has_deadline[i] else None,
+             "mcmc" if i in mcmc else "rejection")
+            for i in range(SERVE_REQUESTS)]
+
+
+def direct_results(sampler, reqs, backend: str) -> dict:
+    """{rid: SampleResult} of (rid, seed) pairs submitted straight to a
+    fresh engine of ``backend``: the draws a scheduled request must get
+    (a draw depends on neither the pool's size nor the admission order)."""
+    from repro_torch.serve.sampler_engine import SampleRequest, SamplerEngine
+
+    if not reqs:
+        return {}
+    eng = (SamplerEngine(sampler, n_slots=N_SLOTS, n_spec=SERVE_N_SPEC)
+           if backend == "rejection"
+           else SamplerEngine(sampler, backend="mcmc", mcmc_k=MCMC_K,
+                              n_slots=min(len(reqs), 4 * N_SLOTS)))
+    for rid, seed in reqs:
+        eng.submit(SampleRequest(rid=rid, seed=seed))
+    return eng.run()
+
+
+def replay_wall(sched, trace) -> float:
+    """Submit each request of ``trace`` when the wall clock reaches its
+    arrival and tick the scheduler whenever it holds work, until it
+    drains; returns the seconds it took."""
+    import torch
+    from repro_torch.serve.scheduler import ServeRequest
+
+    clock = sched.clock
+    t0 = clock()
+    i = 0
+    while i < len(trace) or sched.busy():
+        now = clock() - t0
+        check(now < SERVE_TIMEOUT_S, f"the replay took over {SERVE_TIMEOUT_S} s")
+        while i < len(trace) and trace[i][0] <= now:
+            _, rid, seed, prio, deadline_in, pool = trace[i]
+            sched.submit(ServeRequest(
+                rid=rid, seed=seed, priority=prio, pool=pool,
+                deadline=None if deadline_in is None
+                else clock() + deadline_in))
+            i += 1
+        if sched.busy():
+            sched.tick()
+        elif i < len(trace):
+            time.sleep(max(0.0, trace[i][0] - (clock() - t0)))
+    torch.cuda.synchronize()
+    return clock() - t0
+
+
+def _pcts(h) -> list:
+    """[p50, p99] of a LogHistogram (seconds), None when empty."""
+    return [h.percentile(50), h.percentile(99)] if h.count else None
+
+
+def telemetry_ab(sampler) -> dict:
+    """SERVE_AB_REQUESTS requests through an engine without telemetry and
+    one with it, timed, then again under ``torch.profiler``: the results
+    per rid and the ticks must be equal, and so must a tick's events: the
+    CUDA runtime calls by name (the kernel launches in total, the copies,
+    the syncs), the ATen operators by name, and by the device's events the
+    device-to-host copies and kernel 1's launches.  On the H100 the
+    profiler loses a few device events of a window now and then (1 to 3
+    elementwise kernels of ~35,000 in most windows, thousands in one),
+    never a host event, so a pair of traces that differs is taken
+    again, up to TRACE_ATTEMPTS times; a difference that telemetry made
+    would show in every pair."""
+    import collections
+
+    import torch
+    from repro_torch.kernels.spec_round import ops as spec_ops
+    from repro_torch.obs import Telemetry
+    from repro_torch.serve.sampler_engine import SampleRequest, SamplerEngine
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def run(tel, profiled: bool):
+        eng = SamplerEngine(sampler, n_slots=N_SLOTS, n_spec=SERVE_N_SPEC,
+                            telemetry=tel)
+        for rid in range(SERVE_AB_REQUESTS):
+            eng.submit(SampleRequest(rid=rid, seed=SEED + 50_000 + rid))
+        before = spec_ops.launches
+        torch.cuda.synchronize()
+        ctx = (torch.profiler.profile(activities=acts) if profiled
+               else contextlib.nullcontext())
+        with ctx as prof:
+            t0 = time.perf_counter()
+            out = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        reading = {"ticks": eng.ticks, "tick_ms": wall / eng.ticks * 1e3,
+                   "descend_score_wrapper": spec_ops.launches - before}
+        if profiled:
+            host = collections.Counter()
+            dev = collections.Counter()
+            for e in prof.key_averages():
+                if _device_us(e) > 0 and e.cpu_time_total == 0:
+                    dev[e.key] += e.count
+                elif e.key.startswith(("cuda", "aten::")):
+                    host[e.key] += e.count
+            kern = {k: v for k, v in dev.items()
+                    if not k.startswith(("Memcpy", "Memset"))}
+            reading.update(
+                runtime_calls={k: v for k, v in host.items()
+                               if k.startswith("cuda")},
+                aten_ops=sum(v for k, v in host.items()
+                             if k.startswith("aten::")),
+                aten_by_name={k: v for k, v in host.items()
+                              if k.startswith("aten::")},
+                launch_calls=sum(v for k, v in host.items()
+                                 if k.startswith("cudaLaunchKernel")),
+                device_kernels=sum(kern.values()),
+                descend_score=sum(v for k, v in kern.items()
+                                  if "descend_score" in k),
+                d2h=sum(v for k, v in dev.items() if "DtoH" in k))
+        return out, reading
+
+    compared = ("ticks", "descend_score_wrapper", "runtime_calls",
+                "aten_by_name", "descend_score", "d2h")
+    # timed in turns (bare, telemetry, telemetry, bare): the host's clock
+    # drifts within a process
+    timed, outs = {"bare": [], "telemetry": []}, {}
+    for i, name in enumerate(("bare", "telemetry", "telemetry", "bare")):
+        outs[f"{name}_{i}"], reading = run(
+            Telemetry() if name == "telemetry" else None, profiled=False)
+        timed[name].append(reading)
+    attempts = []
+    for _ in range(TRACE_ATTEMPTS):
+        pair = {}
+        for name, make in (("bare", lambda: None), ("telemetry", Telemetry)):
+            outs[name + "_traced"], pair[name] = run(make(), profiled=True)
+        attempts.append(pair)
+        if (pair["bare"]["launch_calls"] and pair["bare"]["d2h"]
+                and all(pair["bare"][k] == pair["telemetry"][k]
+                        for k in compared)):
+            break
+    base = outs["bare_0"]
+    check(sorted(base) == list(range(SERVE_AB_REQUESTS)),
+          f"the bare engine returned {len(base)} of {SERVE_AB_REQUESTS}")
+    differ = sorted({rid for o in outs.values() for rid in base
+                     if rid not in o or not same_result(o[rid], base[rid])})
+    check(not differ, f"telemetry changed the draws of rids {differ[:10]}")
+    check(len({r["ticks"] for rs in timed.values() for r in rs}) == 1,
+          f"telemetry changed the ticks: {timed}")
+    last = attempts[-1]
+    summary = {n: {k: r[k] for k in r if k != "aten_by_name"}
+               for n, r in last.items()}
+    check(last["bare"]["launch_calls"] > 0 and last["bare"]["d2h"] > 0,
+          f"the profiler saw no launch or copy in {len(attempts)} traces")
+    check(all(last["bare"][k] == last["telemetry"][k] for k in compared),
+          f"telemetry changed a tick's events in all {len(attempts)} pairs "
+          f"of traces: {summary}")
+    per_tick = {n: {k: r[k] / r["ticks"] for k in (
+        "launch_calls", "aten_ops", "device_kernels", "descend_score", "d2h")}
+        for n, r in last.items()}
+    return {"requests": SERVE_AB_REQUESTS,
+            "tick_ms": {n: [r["tick_ms"] for r in rs]
+                        for n, rs in timed.items()},
+            "traced": summary, "per_tick": per_tick,
+            "trace_attempts": len(attempts),
+            "device_kernels_by_attempt": [
+                {n: r["device_kernels"] for n, r in a.items()}
+                for a in attempts],
+            # per pair of traces, the compared readings that differed
+            "differed_by_attempt": [
+                {k: [a["bare"][k], a["telemetry"][k]] for k in compared
+                 if a["bare"][k] != a["telemetry"][k] and k != "aten_by_name"}
+                | ({"aten_by_name": "differs"} if a["bare"]["aten_by_name"]
+                   != a["telemetry"]["aten_by_name"] else {})
+                for a in attempts],
+            "equal": True}
+
+
+def frontdoor_runs(sampler) -> tuple:
+    """SERVE_AB_REQUESTS requests through the asyncio ``FrontDoor`` over an
+    8-slot rejection pool, then SERVE_HTTP_REQUESTS ``POST /v1/sample``
+    calls through ``serve_http`` on 127.0.0.1 from client threads, and a
+    ``GET /v1/metrics``; every answer against a direct submission.  Returns
+    (the reading, the kernels' launches in the two runs)."""
+    import asyncio
+    import concurrent.futures
+    import threading
+    import urllib.request
+
+    import torch
+    from repro_torch.obs import Telemetry
+    from repro_torch.serve.frontdoor import FrontDoor, serve_http
+    from repro_torch.serve.sampler_engine import SamplerEngine
+    from repro_torch.serve.scheduler import Scheduler
+
+    door_reqs = [(rid, SEED + 60_000 + rid) for rid in range(SERVE_AB_REQUESTS)]
+    http_reqs = [(1000 + i, SEED + 70_000 + i)
+                 for i in range(SERVE_HTTP_REQUESTS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    truth = direct_results(sampler, door_reqs, "rejection")
+    torch.cuda.synchronize()
+    t_direct = time.perf_counter() - t0
+    truth.update(direct_results(sampler, http_reqs, "rejection"))
+
+    def post(url, rid, seed):
+        body = json.dumps({"rid": rid, "seed": seed,
+                           "pool": "rejection"}).encode()
+        req = urllib.request.Request(url + "/v1/sample", data=body,
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT_S) as r:
+            return r.status, json.loads(r.read())
+
+    def get(url, path):
+        with urllib.request.urlopen(url + path, timeout=SERVE_TIMEOUT_S) as r:
+            return r.status, r.read().decode()
+
+    async def main():
+        tel = Telemetry()
+        sched = Scheduler({"rejection": SamplerEngine(
+            sampler, n_slots=N_SLOTS, n_spec=SERVE_N_SPEC, telemetry=tel)},
+            telemetry=tel, max_queue=4 * SERVE_AB_REQUESTS)
+        loop = asyncio.get_running_loop()
+        out = {}
+        async with FrontDoor(sched) as door:
+            reset_counts()
+            t0 = time.perf_counter()
+            res = await asyncio.wait_for(asyncio.gather(*(
+                door.sample(seed, rid=rid, pool="rejection")
+                for rid, seed in door_reqs)), SERVE_TIMEOUT_S)
+            out["door_s"] = time.perf_counter() - t0
+            out["door_launches"] = read_counts()
+            out["door"] = dict(zip((rid for rid, _ in door_reqs), res))
+            srv = serve_http(door, loop, timeout_s=SERVE_TIMEOUT_S)
+            thread = threading.Thread(target=srv.serve_forever, daemon=True)
+            thread.start()
+            url = "http://%s:%d" % srv.server_address
+            pool = concurrent.futures.ThreadPoolExecutor(SERVE_HTTP_REQUESTS)
+            try:
+                reset_counts()
+                t0 = time.perf_counter()
+                answers = await asyncio.wait_for(asyncio.gather(*(
+                    loop.run_in_executor(pool, post, url, rid, seed)
+                    for rid, seed in http_reqs)), SERVE_TIMEOUT_S)
+                out["http_s"] = time.perf_counter() - t0
+                out["http_launches"] = read_counts()
+                out["http"] = answers
+                out["metrics"] = await asyncio.wait_for(loop.run_in_executor(
+                    pool, get, url, "/v1/metrics"), SERVE_TIMEOUT_S)
+                out["stats"] = await asyncio.wait_for(loop.run_in_executor(
+                    pool, get, url, "/v1/stats"), SERVE_TIMEOUT_S)
+            finally:
+                srv.shutdown()
+                srv.server_close()
+                thread.join(SERVE_TIMEOUT_S)
+                pool.shutdown(wait=True)
+        return out
+
+    out = asyncio.run(main())
+    door_differ = [rid for rid, _ in door_reqs
+                   if not same_result(out["door"][rid], truth[rid])]
+    check(not door_differ, f"FrontDoor answers differ from direct "
+                           f"submission for rids {door_differ[:10]}")
+    http_differ = []
+    for (rid, _), (code, body) in zip(http_reqs, out["http"]):
+        t = truth[rid]
+        if not (code == 200 and body["rid"] == rid
+                and body["items"] == t.items[t.mask].tolist()
+                and body["trials"] == t.trials
+                and body["accepted"] == t.accepted):
+            http_differ.append(rid)
+    check(not http_differ, f"HTTP answers differ from direct submission for "
+                           f"rids {http_differ}")
+    code, text = out["metrics"]
+    needed = ("ndpp_requests_retired_total", "ndpp_sched_submitted_total",
+              "ndpp_sched_admitted_total", "ndpp_sched_queue_wait_seconds")
+    check(code == 200 and all(n in text for n in needed),
+          f"GET /v1/metrics ({code}) lacks one of {needed}")
+    check(out["stats"][0] == 200, "GET /v1/stats failed")
+    launches = {k: out["door_launches"][k] + out["http_launches"][k]
+                for k in out["door_launches"]}
+    return {"requests_per_s": {
+        "direct": SERVE_AB_REQUESTS / t_direct,
+        "frontdoor": SERVE_AB_REQUESTS / out["door_s"],
+        "http": SERVE_HTTP_REQUESTS / out["http_s"]},
+        "frontdoor_equal_to_direct": True, "http_equal_to_direct": True,
+        "http_requests": SERVE_HTTP_REQUESTS,
+        "metrics_exposed": list(needed),
+        "stats": json.loads(out["stats"][1])}, launches
+
+
+def run_serve(sampler):
+    """The admission scheduler and the front door over the main path's
+    sampler (M = 2^20, R = 200, nothing cut): a seeded trace of
+    SERVE_REQUESTS replayed on the wall clock through a ``Scheduler`` over
+    a rejection and an MCMC pool that share one ``Telemetry``, every rid's
+    outcome checked and every done draw held to direct submission; the
+    telemetry A/B; the ``FrontDoor`` and HTTP runs -> one ``{"serve":
+    ...}`` line.  Kernel launches are counted around the replay and the
+    FrontDoor and HTTP runs."""
+    import torch
+    from repro_torch.core import det_ratio_exact
+    from repro_torch.obs import LogHistogram, Telemetry
+    from repro_torch.serve.sampler_engine import SamplerEngine
+    from repro_torch.serve.scheduler import SHED_REASONS, Scheduler
+
+    trace = serve_trace(SEED + 0x5E5E)
+    tel = Telemetry(flight_capacity=1 << 14)
+    pools = {"rejection": SamplerEngine(sampler, n_slots=N_SLOTS,
+                                        n_spec=SERVE_N_SPEC, telemetry=tel),
+             "mcmc": SamplerEngine(sampler, backend="mcmc", mcmc_k=MCMC_K,
+                                   n_slots=N_SLOTS, telemetry=tel)}
+    sched = Scheduler(pools, max_queue=SERVE_MAX_QUEUE, on_full="evict",
+                      telemetry=tel)
+    reset_counts()
+    wall = replay_wall(sched, trace)
+    launches = read_counts()
+    outcomes = sched.outcomes
+    check(sorted(outcomes) == list(range(SERVE_REQUESTS)),
+          f"{len(outcomes)} of {SERVE_REQUESTS} rids reached an outcome")
+    check(sched.stats()["requests"].keys() <= {"done", "shed"},
+          f"rids in other states: {sched.stats()['requests']}")
+    bad = [rid for rid, o in outcomes.items()
+           if not ((o.status == "done" and o.reason is None
+                    and o.result is not None)
+                   or (o.status == "shed" and o.reason in SHED_REASONS
+                       and o.result is None))]
+    check(not bad, f"rids {bad[:10]} ended outside done / shed by a reason "
+                   f"in {SHED_REASONS}")
+    shed_events = {e["rid"] for e in tel.flight.events("sched_shed")}
+    shed = [rid for rid, o in outcomes.items() if o.status == "shed"]
+    check(tel.flight.dropped == 0 and set(shed) == shed_events
+          and all(sched.spans[rid].state == "shed" for rid in shed),
+          "a shed rid lacks its flight event or its shed span")
+    done = {pool: {rid: o.result for rid, o in outcomes.items()
+                   if o.status == "done" and o.pool == pool}
+            for pool in ("rejection", "mcmc")}
+    check(all(done.values()), f"a pool served nothing: "
+                              f"{ {p: len(d) for p, d in done.items()} }")
+    by_rid = {rid: seed for _, rid, seed, *_ in trace}
+    differ = []
+    for pool, res in done.items():
+        truth = direct_results(sampler, [(rid, by_rid[rid]) for rid in res],
+                               pool)
+        differ += [rid for rid in res if not same_result(res[rid],
+                                                         truth[rid])]
+    check(not differ, f"scheduled draws differ from direct submission for "
+                      f"rids {differ[:10]}")
+    bad = [rid for rid, r in done["rejection"].items()
+           if not valid_result(r, M_ITEMS, 256)]
+    bad += invalid_mcmc(sampler.sp, done["mcmc"])
+    check(not bad, f"invalid served results for rids {bad[:10]}")
+    expect = float(det_ratio_exact(sampler.sp))
+    mean_trials = float(np.mean([r.trials for r in
+                                 done["rejection"].values()]))
+    check(0.5 * expect <= mean_trials <= 2.0 * expect,
+          f"served mean trials {mean_trials} outside [0.5, 2] x "
+          f"det_ratio_exact {expect}")
+    for name in ("descend_score", "score_all"):
+        check(launches[name] > 0, f"kernel {name} was not launched in the "
+                                  f"serve phase's replay")
+    reg = tel.registry
+    service = {}
+    for pool, res in done.items():
+        h = LogHistogram(start=1e-5, factor=2 ** 0.25)
+        for rid in res:
+            h.observe(sched.spans[rid].service_time)
+        service[pool] = _pcts(h)
+    shed_by_reason = {reason: int(reg.get("ndpp_sched_shed_total").value(
+        reason=reason)) for reason in SHED_REASONS}
+    check(sum(shed_by_reason.values()) == len(shed),
+          f"ndpp_sched_shed_total {shed_by_reason} against {len(shed)} sheds")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ab = telemetry_ab(sampler)
+    door, door_launches = frontdoor_runs(sampler)
+    launches = {k: launches[k] + door_launches[k] for k in launches}
+    emit({"serve": {
+        "M": M_ITEMS, "R": sampler.tree.R, "requests": SERVE_REQUESTS,
+        "rate_per_s": SERVE_RATE, "max_queue": SERVE_MAX_QUEUE,
+        "on_full": "evict",
+        "pools": {"rejection": {"n_slots": N_SLOTS, "n_spec": SERVE_N_SPEC},
+                  "mcmc": {"n_slots": N_SLOTS, "k": MCMC_K}},
+        "replay_s": wall, "ticks": sched.ticks,
+        "done": {p: len(d) for p, d in done.items()},
+        "done_per_s": sum(len(d) for d in done.values()) / wall,
+        "shed_by_reason": shed_by_reason,
+        "done_equal_to_direct": True,
+        "mean_trials": mean_trials, "det_ratio_exact": expect,
+        "sched_queue_wait_s_p50_p99": _pcts(
+            reg.get("ndpp_sched_queue_wait_seconds").data()),
+        # the pools are named after their backends
+        "latency_s_p50_p99": {p: _pcts(reg.get(
+            "ndpp_request_latency_seconds").data(backend=p)) for p in done},
+        "service_s_p50_p99": service,
+        "tick_s_p50_p99": {p: _pcts(reg.get("ndpp_tick_seconds").data(
+            backend=p)) for p in done},
+        "flight_events": tel.flight.total,
+        "telemetry_free": ab, **door, "launches": launches}})
+    return launches
+
+
 # ------------------------------------------------------------- the kernels
 def check_block_outer_sums(sampler, launches):
     import torch
@@ -568,7 +1014,9 @@ def trace_descend_score():
     projectors, each choosing TARGET_SIZE of the 2K eigenvectors, as the
     main path's first step of a round makes them.  Its mean device time
     from a ``torch.profiler`` trace of DESCEND_TRACE_CALLS calls (a trace
-    without the kernel is taken again, up to TRACE_ATTEMPTS times), the
+    that holds fewer of them is taken again, up to TRACE_ATTEMPTS times:
+    the profiler has lost one of the 20 launches in a fresh process's
+    first trace), the
     time through the wrapper, the lanes' cluster size and how many such
     clusters the card holds at once (``cudaOccupancyMaxActiveClusters``),
     printed once."""
@@ -597,7 +1045,7 @@ def trace_descend_score():
             lambda: [call() for _ in range(DESCEND_TRACE_CALLS)],
             "descend_score_kernel")["tracked"]
         traced = sum(k[2] for k in tracked["kernels_ms"])
-        if traced:
+        if traced == DESCEND_TRACE_CALLS:
             break
     check(traced == DESCEND_TRACE_CALLS,
           f"descend_score's trace holds {traced} of {DESCEND_TRACE_CALLS} "
@@ -1354,6 +1802,7 @@ def run_catalog(factors):
     from repro_torch.core.dynamic import dual_rows
     from repro_torch.core.tree import construct_tree
     from repro_torch.kernels.tree_sum import ops as tree_sum_ops
+    from repro_torch.obs import Telemetry
     from repro_torch.serve.catalog import Catalog
     from repro_torch.serve.sampler_engine import SampleRequest, SamplerEngine
 
@@ -1379,8 +1828,10 @@ def run_catalog(factors):
 
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
+    cat_tel = Telemetry()
     cat, build_ms = timed(Catalog, V[:m0], B[:m0], D, block=BLOCK,
-                          capacity=CAT_CAPACITY, staleness=1, device=DEVICE)
+                          capacity=CAT_CAPACITY, staleness=1, device=DEVICE,
+                          telemetry=cat_tel)
     check(cat.capacity == CAT_CAPACITY and cat.m == m0,
           f"catalog capacity {cat.capacity}, live {cat.m}")
     n_ins = CAT_BATCH * 2
@@ -1493,6 +1944,14 @@ def run_catalog(factors):
     for name in ("block_outer_sums", "gathered_block_grams", "descend_score"):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the catalog path")
+    # the catalog's telemetry: one event and one count a mutation batch
+    mutations = {op: int(v) for (op,), v in cat_tel.registry.get(
+        "ndpp_catalog_mutations_total").labelsets()}
+    want = {"build": 1, "insert": CAT_ROUNDS, "update": CAT_ROUNDS + 1,
+            "delete": CAT_ROUNDS + 1, "refresh": CAT_ROUNDS}
+    check(mutations == want and len(cat_tel.flight) == sum(want.values()),
+          f"catalog telemetry counted {mutations}, "
+          f"{len(cat_tel.flight)} events; want {want}")
     emit({"catalog": {
         "capacity": CAT_CAPACITY, "live_items": m0, "R": live.R,
         "block": BLOCK, "staleness": 1, "build_ms": build_ms,
@@ -1509,6 +1968,7 @@ def run_catalog(factors):
         "post_swap_mean_trials": mean_trials,
         "expected_trials_dynamic": expect,
         "pre_swap_equal_to_never_swapped": True,
+        "telemetry_mutations": mutations,
         "peak_device_gb": peak / 1e9, "launches": launches}})
     del eng, out, never, before, after, live
     return cat, captured, launches
@@ -1639,6 +2099,7 @@ def run_mcmc(sp):
     tick_profile = profile_window(lambda: run_chains(
         sp, keys, eng._states, n_steps=eng.mcmc_steps_per_tick, fixed=True,
         p_swap=eng.mcmc_p_swap, refresh_every=eng.mcmc_refresh_every))
+    harvest_ms = time_mcmc_harvest(sp, eng, keys)
     # the refresh's batched inverse (MAGMA getrf/getri through inv_ex) on
     # the engine's chains, alone: wall ms a call, then one profiled call
     ly = mcmc_core._padded_l(sp.Z, sp.x_matrix(), eng._states.items,
@@ -1671,9 +2132,46 @@ def run_mcmc(sp):
         "tick_profile": tick_profile,
         "refresh_every": eng.mcmc_refresh_every,
         "inv_shape": list(ly.shape), "inv_ms": inv_ms,
-        "inv_profile": inv_profile,
+        "inv_profile": inv_profile, "harvest_ms": harvest_ms,
         "peak_device_gb": peak / 1e9, "launches": launches}})
     return captured, launches, out
+
+
+HARVEST_REPS = 10
+
+
+def time_mcmc_harvest(sp, eng, keys) -> dict:
+    """Wall ms of the MCMC tick's one device-to-host copy on one tick's
+    traces, in turns: the items and masks alone, and with the acceptance
+    trace packed beside them as ``SamplerEngine._step_mcmc`` packs it, with
+    or without telemetry (one cast more a tick: its cost to the bare
+    engine)."""
+    import torch
+    from repro_torch.core import mcmc as mcmc_core
+
+    _, items_tr, mask_tr, acc_tr = mcmc_core.run_chains(
+        sp, keys, eng._states, n_steps=eng.mcmc_steps_per_tick, fixed=True,
+        p_swap=eng.mcmc_p_swap, refresh_every=eng.mcmc_refresh_every)
+
+    def harvest(with_acc: bool):
+        parts = [items_tr, mask_tr.long()]
+        if with_acc:
+            parts.append(acc_tr.long()[..., None])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cat(parts, dim=2).cpu().numpy()
+        return (time.perf_counter() - t0) * 1e3
+
+    out = {"items_mask": [], "with_acceptance": [],
+           "shape": list(items_tr.shape)}
+    harvest(False), harvest(True)                 # warm
+    for _ in range(HARVEST_REPS):
+        for name, flag in (("items_mask", False), ("with_acceptance", True),
+                           ("with_acceptance", True), ("items_mask", False)):
+            out[name].append(harvest(flag))
+    for name in ("items_mask", "with_acceptance"):
+        out[name + "_median"] = float(np.median(out[name]))
+    return out
 
 
 def check_score_all(sp, captured, launches):
@@ -2894,13 +3392,14 @@ def _ssd_trace_inputs():
 TRACE_ATTEMPTS = 3
 
 
-def _trace_kernels(call, prefix: str) -> dict:
+def _trace_kernels(call, prefix: str, expected: tuple) -> dict:
     """The CUDA kernels whose names hold ``prefix`` that one ``call()``
     launched, counted by name, from a ``torch.profiler`` trace (after one
-    untraced call), and the number of traces taken: a trace that holds
-    none of them is taken again, up to TRACE_ATTEMPTS times (on the H100
-    the first trace of a fresh process has come back without any kernel;
-    a trace that holds some is kept as it is)."""
+    untraced call), and the number of traces taken: a trace that does not
+    hold each of ``expected`` once is taken again, up to TRACE_ATTEMPTS
+    times (on the H100 the first trace of a fresh process has come back
+    without any kernel, and the profiler loses a device event of a window
+    now and then)."""
     call()
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         counts = {}
@@ -2908,7 +3407,7 @@ def _trace_kernels(call, prefix: str) -> dict:
                 "kernels_ms"]:
             name = re.search(prefix + r"\w*", key).group(0)
             counts[name] = counts.get(name, 0) + count
-        if counts:
+        if counts == dict.fromkeys(expected, 1):
             break
     return {"kernels": counts, "attempts": attempt}
 
@@ -2923,7 +3422,8 @@ def trace_ssd_fwd():
 
     x, a, b, c, _, chunk = _ssd_trace_inputs()
     return dict(_trace_kernels(lambda: ops.ssd_forward(
-        x, a, b, c, chunk, keep_states=True), "ssd_fwd"),
+        x, a, b, c, chunk, keep_states=True), "ssd_fwd",
+        SSD_FWD_WGMMA_KERNELS),
         shape=_ssd_shape(x, b, chunk))
 
 
@@ -2940,7 +3440,8 @@ def trace_ssd_bwd():
     x, a, b, c, dy, chunk = _ssd_trace_inputs()
     states = ops.ssd_forward(x, a, b, c, chunk, keep_states=True)[2]
     return dict(_trace_kernels(lambda: ops.ssd_backward(
-        x, a, b, c, states, dy, None, chunk), "ssd_bwd"),
+        x, a, b, c, states, dy, None, chunk), "ssd_bwd",
+        SSD_BWD_WGMMA_KERNELS),
         shape=_ssd_shape(x, b, chunk))
 
 
@@ -3233,6 +3734,9 @@ def main() -> int:
     entries = [check_block_outer_sums(sampler, by_path["main_path"]),
                check_descend_score(sampler, captured, by_path["main_path"],
                                    descend_traced)]
+    by_path["serve"] = run_serve(sampler)
+    gc.collect()
+    torch.cuda.empty_cache()
     by_path["cholesky"], chol_keys, chol_x = run_cholesky(sampler)
     by_path["learned"], learned = run_learned(factors)
     entries.append(check_cholesky_scan(sampler.sp, chol_keys, chol_x,

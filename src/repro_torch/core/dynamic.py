@@ -42,6 +42,7 @@ from .rejection import (
     RejectionSample,
     _drive_rounds_fused,
     _fanout_traced,
+    drive_rounds,
     log_det_ratio,
 )
 from .tree import (
@@ -193,7 +194,7 @@ def auto_n_spec_dynamic(prop: DualProposal, live_sp: SpectralNDPP,
 
 def sample_dynamic_many(
     prop: DualProposal, live_sp: SpectralNDPP, key, n: Optional[int] = None,
-    *, n_spec: Optional[int] = None, max_trials: int = 1000,
+    *, n_spec: Optional[int] = None, max_trials: int = 1000, grow: int = 2,
     max_spec: int = 64, split_keys: bool = True, mesh=None, observer=None,
 ) -> RejectionSample:
     """Speculative rejection sampling against a dynamic-catalog state.
@@ -207,16 +208,16 @@ def sample_dynamic_many(
     so draws follow the live kernel exactly while the snapshot dominates
     it.  ``mesh``: place the proposal and ``live_sp`` on it
     (``shard_proposal``, ``shard_spectral``) and run the same rounds
-    item-sharded, with the same draws.  Returns
-    tensors on the proposal's (first) device.
+    item-sharded, with the same draws.  ``observer``: a duck-typed
+    telemetry sink (``repro_torch.obs.RegistryObserver``), which runs the
+    rounds through the reference's observed round loop
+    (``rejection.drive_rounds``, the round width multiplied by ``grow``
+    after a missed round, capped at ``max_spec``) with the same draws.
+    Returns tensors on the proposal's (first) device.
     """
     if mesh is not None:
         prop = shard_proposal(prop, mesh)
         live_sp = shard_spectral(live_sp, mesh)
-    if observer is not None:
-        raise NotImplementedError(
-            "observer= is not ported yet (ROADMAP, Queue 1: observability "
-            "and the front door)")
     dev = prop.tree.device
     if n_spec is None:
         n_spec = auto_n_spec_dynamic(prop, live_sp, max_spec)
@@ -227,6 +228,12 @@ def sample_dynamic_many(
         req_keys = trandom.split(key, n)
     else:
         req_keys = key
-    return _drive_rounds_fused(
-        lambda keys: _spec_round_dual_impl(prop, live_sp, keys), req_keys,
-        prop.R, n_spec=n_spec, max_trials=max_trials)
+    def round_fn(keys):
+        return _spec_round_dual_impl(prop, live_sp, keys)
+
+    if observer is None:
+        return _drive_rounds_fused(round_fn, req_keys, prop.R, n_spec=n_spec,
+                                   max_trials=max_trials)
+    return drive_rounds(round_fn, req_keys, prop.R, n_spec=n_spec,
+                        max_trials=max_trials, grow=grow, max_spec=max_spec,
+                        observer=observer)

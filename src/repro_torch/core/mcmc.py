@@ -462,12 +462,12 @@ def sample_mcmc(
     ``n_chains`` chains contributes ``ceil(n_samples / n_chains)`` states
     taken every ``thin`` steps after ``burn_in``.  ``mesh``: keep the
     catalog rows on their shards (``run_chains_sharded``), with the same
-    draws.
+    draws.  ``observer``: a duck-typed telemetry sink
+    (``repro_torch.obs.RegistryObserver``) that gets one
+    ``on_mcmc(steps=, n_chains=, accept_fraction=)`` call with host
+    numbers read off the acceptance trace the chains already return (one
+    scalar copy to the host; the draws are untouched).
     """
-    if observer is not None:
-        raise NotImplementedError(
-            "observer= is not ported yet (ROADMAP, Queue 1: observability "
-            "and the front door)")
     dev = sp.sigma.device
     key = trandom.as_key(key, dev)
     n_chains = min(n_chains, n_samples)
@@ -488,6 +488,10 @@ def sample_mcmc(
             sp, chain_keys, states, mesh=mesh, n_steps=n_steps,
             fixed=k is not None, p_swap=p_swap, refresh_every=refresh_every)
         dev = mesh.device
+    accept_rate = acc_tr.float().mean()
+    if observer is not None:
+        observer.on_mcmc(steps=n_steps * n_chains, n_chains=n_chains,
+                         accept_fraction=float(accept_rate))
     take = burn_in + thin * np.arange(1, per_chain + 1) - 1
     take_t = torch.as_tensor(take, device=dev)
     r = items_tr.shape[-1]
@@ -495,4 +499,4 @@ def sample_mcmc(
     mask = mask_tr[:, take_t].reshape(-1, r)[:n_samples]
     steps = (take_t + 1).repeat(n_chains)[:n_samples]
     return MCMCSample(items=items, mask=mask, steps=steps,
-                      accept_rate=acc_tr.float().mean())
+                      accept_rate=accept_rate)

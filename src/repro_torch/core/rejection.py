@@ -28,7 +28,6 @@ equal the unsharded sampler's.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Callable, NamedTuple, Optional, Tuple
@@ -39,6 +38,7 @@ import torch
 from .. import random as trandom
 from ..device import DeviceLike, resolve_device
 from ..models import sharding as msh
+from ..obs.trace import phase_annotation
 from .tree import (
     AnyTree,
     construct_tree,
@@ -48,10 +48,6 @@ from .tree import (
     shard_tree,
 )
 from .types import SpectralNDPP
-
-#: shared no-op context for drivers whose observer has no ``phase`` hook
-_NO_PHASE = contextlib.nullcontext()
-
 
 class RejectionSample(NamedTuple):
     items: torch.Tensor     # (..., R) padded item indices (-1 = empty slot)
@@ -402,7 +398,8 @@ def drive_rounds(round_fn: Callable, req_keys: torch.Tensor, r: int, *,
     ``phase(name)`` context manager names the "round_dispatch" and
     "harvest" ranges.  Observation adds no sync and cannot change a draw.
     """
-    phase = getattr(observer, "phase", None) or (lambda name: _NO_PHASE)
+    phase = (getattr(observer, "phase", None)
+             or (lambda name: phase_annotation(name, False)))
     n = req_keys.shape[0]
     dev = req_keys.device
     items_out = np.full((n, r), -1, np.int64)

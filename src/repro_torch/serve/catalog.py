@@ -1,5 +1,5 @@
 """Versioned dynamic catalog: streaming item insert, update and delete
-(port of ``repro/serve/catalog.py``, without telemetry).
+(port of ``repro/serve/catalog.py``).
 
 ``Catalog`` keeps three pieces of state consistent:
 
@@ -100,17 +100,16 @@ class Catalog:
         (``repro_torch.launch.mesh.make_sampler_mesh``); the state then
         lives on the mesh's devices and replicated arrays on its first.
       device: where the state lives without a mesh (default ``cuda``).
-
-    ``telemetry=`` is not ported yet and raises.
+      telemetry: a ``repro_torch.obs.Telemetry``: every mutation batch
+        records a flight event (op, batch size, resulting version) and
+        bumps ``ndpp_catalog_mutations_total{op=...}`` and the live item
+        and capacity gauges.  Host bookkeeping only; the mutation math is
+        untouched.
     """
 
     def __init__(self, V, B, D, *, block: int = 64,
                  capacity: Optional[int] = None, staleness: int = 0,
                  mesh=None, telemetry=None, device: DeviceLike = None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "telemetry= is not ported yet (ROADMAP, Queue 1: "
-                "observability and the front door)")
         self.mesh = mesh
         if mesh is not None:
             msh.model_extent(mesh)
@@ -136,7 +135,31 @@ class Catalog:
         self._alive[:m] = True
         self._version = 0
         self._deferred = 0
+        self._tel = telemetry
+        if telemetry is not None:
+            reg = telemetry.registry
+            self._c_mut = reg.counter(
+                "ndpp_catalog_mutations_total",
+                "catalog mutation batches by operation", ("op",))
+            self._g_items = reg.gauge("ndpp_catalog_items",
+                                      "live items in the catalog")
+            self._g_cap = reg.gauge("ndpp_catalog_capacity",
+                                    "row capacity of the catalog")
         self._install(z)
+        self._note("build", m)
+
+    def _note(self, op: str, n: int, **fields):
+        """Record one mutation batch into the telemetry sinks (host only)."""
+        if self._tel is None:
+            return
+        m = self.m                # one pass over the live flags (O(capacity))
+        self._c_mut.inc(op=op)
+        self._g_items.set(m)
+        self._g_cap.set(self.capacity)
+        self._tel.flight.record("catalog_" + op, n=n,
+                                version=self._version, items=m,
+                                stale=self._snap_version != self._version,
+                                **fields)
 
     # ------------------------------------------------------------- plumbing
     def _round_capacity(self, cap: int) -> int:
@@ -228,6 +251,7 @@ class Catalog:
         ids = free[:n_new]
         self._alive[ids] = True
         self._apply(ids, z_rows, install=True)
+        self._note("insert", n_new)
         return ids
 
     def update_items(self, ids: Sequence[int], v_rows, b_rows, *,
@@ -245,6 +269,7 @@ class Catalog:
             raise ValueError(f"duplicate ids in update batch: {ids.tolist()}")
         self._check_alive(ids, "update")
         self._apply(ids, self._embed(v_rows, b_rows), install=not defer)
+        self._note("update", int(ids.size), defer=bool(defer))
 
     def delete_items(self, ids: Sequence[int]):
         """Delist items: their live rows become exact zeros (rejected with
@@ -257,6 +282,7 @@ class Catalog:
         z_rows = torch.zeros((ids.size, self._sp.Z.shape[1]),
                              dtype=torch.float32, device=self.device)
         self._apply(ids, z_rows, install=False)
+        self._note("delete", int(ids.size))
 
     def _check_alive(self, ids: np.ndarray, op: str):
         if ids.size and (ids.min() < 0 or ids.max() >= self.capacity):
@@ -271,6 +297,7 @@ class Catalog:
         self._snap = self._live_prop
         self._snap_version = self._version
         self._deferred = 0
+        self._note("refresh", 0)
 
     def _grow(self, need: int):
         """Doubling rebuild: the capacity doubles until ``need`` fits, Z is
@@ -287,6 +314,7 @@ class Catalog:
         self._alive = alive
         self._version += 1
         self._install(z)
+        self._note("grow", 0, capacity=cap)
 
     # -------------------------------------------------------------- sampling
     def sample_many(self, key, n: int, *, n_spec: Optional[int] = None,

@@ -1,5 +1,5 @@
 """Slot-based batched serving engine for NDPP sampling (port of
-``repro/serve/sampler_engine.py``, without telemetry).
+``repro/serve/sampler_engine.py``).
 
 ``backend="rejection"`` (default): a fixed pool of ``n_slots`` requests
 shares one speculative round per tick; every slot contributes ``n_spec``
@@ -21,6 +21,12 @@ engine places the sampler (or catalog state) once, at construction and in
 ``swap_catalog``, and every tick runs the same round or chain step, whose
 row reads go to the owning shards; results equal the unsharded engine's.
 
+``telemetry=``: per-request spans, the reference's metric names and a
+flight recorder (``repro_torch.obs``).  It records only from values the
+tick's one device-to-host copy already brought to the host, so an
+instrumented engine makes the same copies and launches and draws the same
+items as a bare one.
+
 Exactness: proposal t of request ``rid`` is drawn from
 ``fold_in(PRNGKey(seed), t)`` and MH step t of a chain from
 ``fold_in(chain_key, t)``, so a request's draw does not depend on pool
@@ -30,6 +36,7 @@ engine's for the same seed and state.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, List, Optional, Union
 
 import numpy as np
@@ -51,17 +58,18 @@ from ..core.rejection import (
 from ..core.tree import shard_spectral
 from ..core.types import SpectralNDPP
 from ..models import sharding as msh
+from ..obs import Span, Telemetry, engine_instruments, phase_annotation
+from ..obs.prof import phases as prof_phases
 from .catalog import Catalog, CatalogState, as_state
 
 #: the greedy start's key: fold_in(PRNGKey(seed), "grdy")
 _GREEDY_TAG = 0x67726479
 
-
 class TickBudgetExhausted(RuntimeError):
     """``run(max_ticks=...)`` ended with work still queued or in flight.
 
     Attributes:
-      unfinished: {rid: state dict} for requests still holding slots.
+      unfinished: {rid: span-state dict} for requests still holding slots.
       queued: rids never admitted.
     """
 
@@ -144,8 +152,15 @@ class SamplerEngine:
         arrays; results equal the unsharded engine's.  M must divide over the mesh and, for a
         static sampler, every shard must own whole leaf blocks.  A
         ``Catalog`` brings its own mesh.
-
-    ``telemetry=`` is not ported yet and raises ``NotImplementedError``.
+      telemetry: a ``repro_torch.obs.Telemetry``: per-request spans,
+        labelled metrics and a flight recorder of recent events.  Free:
+        the draws, the device-to-host copies and the launches a tick are
+        those of the bare engine.
+      on_exhausted: what ``run()`` does when the tick budget ends with
+        requests still queued or in flight: "raise" (default,
+        ``TickBudgetExhausted``), "warn" or "ignore" (return the partial
+        results).  With telemetry a flight event is recorded in every
+        mode.
     """
 
     def __init__(self, sampler: Union[NDPPSampler, SpectralNDPP, Catalog,
@@ -155,13 +170,14 @@ class SamplerEngine:
                  mcmc_thin: int = 16,
                  mcmc_steps_per_tick: Optional[int] = None,
                  mcmc_k: Optional[int] = None, mcmc_p_swap: float = 0.25,
-                 mcmc_refresh_every: int = 64, mesh=None, telemetry=None):
+                 mcmc_refresh_every: int = 64, mesh=None,
+                 telemetry: Optional[Telemetry] = None,
+                 on_exhausted: str = "raise"):
         if backend not in ("rejection", "mcmc"):
             raise ValueError(f"unknown backend {backend!r}")
-        if telemetry is not None:
-            raise NotImplementedError(
-                "telemetry= is not ported yet (ROADMAP, Queue 1: "
-                "observability and the front door)")
+        if on_exhausted not in ("raise", "warn", "ignore"):
+            raise ValueError(f"unknown on_exhausted mode {on_exhausted!r}")
+        self.on_exhausted = on_exhausted
         self.backend = backend
         self.mesh = mesh
         self._cat: Optional[CatalogState] = None
@@ -237,18 +253,50 @@ class SamplerEngine:
         self.slot_pin: List[Optional[CatalogState]] = [None] * n_slots
         self.finished: Dict[int, SampleResult] = {}
         self.ticks = 0
+        self._tel = telemetry
+        self._spans: Dict[int, Span] = {}
+        if telemetry is not None:
+            self._m = engine_instruments(telemetry.registry)
+            telemetry.flight.record(
+                "engine_start", backend=backend, n_slots=n_slots,
+                n_spec=getattr(self, "n_spec", None),
+                catalog_version=None if self._cat is None
+                else self._cat.version)
+            if self._cat is not None:
+                self._m.catalog_version.set(self._cat.version)
 
     # ------------------------------------------------------------- frontend
-    def submit(self, req: SampleRequest):
-        """Queue a request."""
+    def submit(self, req: SampleRequest, span: Optional[Span] = None):
+        """Queue a request.  ``span``: a front door hands down the span it
+        opened at its own admission point, so that the submit-to-retire
+        latency counts from when the request entered the serving stack,
+        not from this (possibly later) staging call."""
         self.queue.append(req)
+        if self._tel is not None:
+            self._spans[req.rid] = span if span is not None else Span(
+                rid=req.rid, seed=req.seed, backend=self.backend)
+            self._m.submitted.inc(backend=self.backend)
+            self._m.queue_depth.set(len(self.queue))
+            self._tel.flight.record("submit", rid=req.rid, seed=req.seed)
 
-    def cancel(self, rid: int) -> bool:
+    def cancel(self, rid: int, outcome: str = "cancelled") -> bool:
         """Abandon a queued (never admitted) request; True iff ``rid`` was
-        waiting in the queue.  In-flight requests always retire normally."""
+        waiting in the queue.  Its span ends ``shed`` or ``cancelled`` (per
+        ``outcome``), never ``retired``, so the queue-wait and latency
+        histograms never see it.  In-flight requests always retire
+        normally (False)."""
         for i, req in enumerate(self.queue):
             if req.rid == rid:
                 del self.queue[i]
+                if self._tel is not None:
+                    span = self._spans.pop(rid, None)
+                    if span is not None:
+                        span.abandon(outcome)
+                    self._m.abandoned.inc(backend=self.backend,
+                                          outcome=outcome)
+                    self._m.queue_depth.set(len(self.queue))
+                    self._tel.flight.record("abandon", rid=rid,
+                                            outcome=outcome)
                 return True
         return False
 
@@ -267,6 +315,15 @@ class SamplerEngine:
         if self.backend == "rejection" and self._cat is None:
             raise ValueError("swap_catalog on a rejection engine requires "
                              "it to have been built from a Catalog")
+        if self._tel is not None:
+            self._m.swaps.inc()
+            self._m.catalog_version.set(st.version)
+            self._tel.flight.record(
+                "catalog_swap", version=st.version,
+                from_version=None if self._cat is None
+                else self._cat.version,
+                stale=st.stale,
+                in_flight=[r.rid for r in self.slot_req if r is not None])
         self._cat = st
         self.sp = st.sp
         if self.backend == "mcmc":
@@ -282,6 +339,12 @@ class SamplerEngine:
         return dataclasses.replace(
             st, sp=shard_spectral(st.sp, self.mesh),
             proposal=shard_proposal(st.proposal, self.mesh))
+
+    def _phase(self, name: str):
+        """Profiler range of one engine phase (a no-op without telemetry or
+        with ``NDPP_PROFILE`` unset)."""
+        return (self._tel.phase(name) if self._tel is not None
+                else phase_annotation(name, False))
 
     def _init_chain_state(self, seed: int) -> mcmc_core.MCMCState:
         """Deterministic per-request chain start: empty for the up/down
@@ -306,6 +369,15 @@ class SamplerEngine:
                     self._states = mcmc_core.MCMCState(*(
                         torch.cat([a[:slot], v, a[slot + 1:]])
                         for a, v in zip(self._states, st)))
+                if self._tel is not None:
+                    span = self._spans[req.rid]
+                    span.admit(slot, None if self._cat is None
+                               else self._cat.version)
+                    self._m.queue_wait.observe(span.queue_wait,
+                                               backend=self.backend)
+                    self._tel.flight.record(
+                        "admit", rid=req.rid, slot=slot, tick=self.ticks,
+                        queue_wait_s=round(span.queue_wait, 9))
 
     def _retire(self, slot: int, result: SampleResult):
         req = self.slot_req[slot]
@@ -313,40 +385,88 @@ class SamplerEngine:
         self.finished[req.rid] = result
         self.slot_req[slot] = None
         self.slot_pin[slot] = None
+        if self._tel is None:
+            return
+        span = self._spans.pop(req.rid, None)
+        if span is None:
+            return
+        span.retire(result.trials, result.accepted)
+        self._m.retired.inc(backend=self.backend,
+                            accepted="true" if result.accepted else "false")
+        self._m.trials_total.inc(int(result.trials), backend=self.backend)
+        if result.accepted:
+            self._m.request_trials.observe(int(result.trials),
+                                           backend=self.backend)
+        self._m.latency.observe(span.wall, backend=self.backend)
+        self._m.ticks_held.observe(span.ticks_held, backend=self.backend)
+        self._tel.flight.record(
+            "retire", rid=req.rid, slot=slot, trials=int(result.trials),
+            accepted=bool(result.accepted), ticks_held=span.ticks_held,
+            wall_s=round(span.wall, 9))
 
     # ----------------------------------------------------------------- core
     def step(self) -> bool:
         """One engine tick: admit from the queue, advance the whole pool,
         retire finished slots.  False if idle."""
-        if self.backend == "mcmc":
-            return self._step_mcmc()
-        return self._step_rejection()
+        if self._tel is None:
+            if self.backend == "mcmc":
+                return self._step_mcmc()
+            return self._step_rejection()
+        t0 = self._tel.now()
+        with self._tel.profile_tick(f"ndpp_engine_tick/{self.backend}"):
+            progressed = (self._step_mcmc() if self.backend == "mcmc"
+                          else self._step_rejection())
+        if progressed:
+            self._m.ticks.inc(backend=self.backend)
+            self._m.tick_seconds.observe(self._tel.now() - t0,
+                                         backend=self.backend)
+        self._m.slots_occupied.set(sum(r is not None for r in self.slot_req))
+        self._m.queue_depth.set(len(self.queue))
+        return progressed
 
     def _step_mcmc(self) -> bool:
         """Advance every chain ``mcmc_steps_per_tick`` MH steps in one call
         (vacant slots carry dummy chains so shapes never change); a slot
         retires with its chain state at step ``burn_in + thin``, read from
         the per-step trace."""
-        self._admit()
+        with self._phase(prof_phases.ADMISSION):
+            self._admit()
         if all(r is None for r in self.slot_req):
             return False
         self.ticks += 1
         n_steps = self.mcmc_steps_per_tick
-        keys = torch.from_numpy(self.slot_key.astype(np.int64)).to(self.device)
-        kw = dict(n_steps=n_steps, fixed=self.mcmc_k is not None,
-                  p_swap=self.mcmc_p_swap,
-                  refresh_every=self.mcmc_refresh_every)
-        self._states, items_tr, mask_tr, _ = mcmc_core.run_chains(
-            self.sp, keys, self._states, **kw)
-        # the one device-to-host copy of the tick
+        with self._phase(prof_phases.ROUND_DISPATCH):
+            keys = torch.from_numpy(
+                self.slot_key.astype(np.int64)).to(self.device)
+            kw = dict(n_steps=n_steps, fixed=self.mcmc_k is not None,
+                      p_swap=self.mcmc_p_swap,
+                      refresh_every=self.mcmc_refresh_every)
+            self._states, items_tr, mask_tr, acc_tr = mcmc_core.run_chains(
+                self.sp, keys, self._states, **kw)
+        # the one device-to-host copy of the tick; the acceptance trace
+        # rides along with or without telemetry, so that telemetry adds no
+        # copy and no launch
         r = items_tr.shape[-1]
-        packed = torch.cat([items_tr, mask_tr.long()], dim=2).cpu().numpy()
+        with self._phase(prof_phases.HARVEST):
+            packed = torch.cat([items_tr, mask_tr.long(),
+                                acc_tr.long()[..., None]],
+                               dim=2).cpu().numpy()
         items_h = packed[..., :r].astype(np.int32)
-        mask_h = packed[..., r:].astype(bool)
+        mask_h = packed[..., r:2 * r].astype(bool)
+        occupied = [s for s in range(self.n_slots)
+                    if self.slot_req[s] is not None]
+        if self._tel is not None:
+            acc_h = packed[..., 2 * r].astype(bool)           # (S, n_steps)
+            self._m.mcmc_accept.observe(float(np.mean(acc_h[occupied])))
+            self._m.mcmc_steps.inc(n_steps * len(occupied))
+            self._m.proposals.inc(n_steps * len(occupied), backend="mcmc")
+            self._m.accepts.inc(int(np.sum(acc_h[occupied])), backend="mcmc")
         target = self.mcmc_burn_in + self.mcmc_thin
-        for slot in range(self.n_slots):
-            if self.slot_req[slot] is None:
-                continue
+        for slot in occupied:
+            if self._tel is not None:
+                span = self._spans[self.slot_req[slot].rid]
+                span.ticks_held += 1
+                span.chain_steps += n_steps
             before = int(self.slot_trials[slot])
             self.slot_trials[slot] = before + n_steps
             if before + n_steps >= target:
@@ -362,7 +482,8 @@ class SamplerEngine:
         round has the full pool's width and a slot harvests only its own
         state's round, so a request's proposals and acceptance tests
         always come from the arrays it was admitted under."""
-        self._admit()
+        with self._phase(prof_phases.ADMISSION):
+            self._admit()
         slots = [s for s in range(self.n_slots) if self.slot_req[s] is not None]
         if not slots:
             return False
@@ -385,12 +506,13 @@ class SamplerEngine:
         dev = torch.from_numpy(host).to(self.device)
         keys, trials = dev[:, :2], dev[:, 2]
         for pin, group in groups:
-            if pin is None:
-                out = _spec_round_fused(self.sampler, keys, trials,
-                                        n_spec=self.n_spec)
-            else:
-                out = _spec_round_dual_fused(pin.proposal, pin.sp, keys,
-                                             trials, n_spec=self.n_spec)
+            with self._phase(prof_phases.ROUND_DISPATCH):
+                if pin is None:
+                    out = _spec_round_fused(self.sampler, keys, trials,
+                                            n_spec=self.n_spec)
+                else:
+                    out = _spec_round_dual_fused(pin.proposal, pin.sp, keys,
+                                                 trials, n_spec=self.n_spec)
             self._harvest(group, *out)
         return True
 
@@ -398,13 +520,16 @@ class SamplerEngine:
         """Retire-or-advance the given slots from one round's outputs."""
         r = items.shape[-1]
         # the one device-to-host copy of the round
-        packed = torch.cat([items, mask.long(), accept.long()[:, None]],
-                           dim=1).cpu().numpy()
+        with self._phase(prof_phases.HARVEST):
+            packed = torch.cat([items, mask.long(), accept.long()[:, None]],
+                               dim=1).cpu().numpy()
         items_h = packed[:, :r].astype(np.int32).reshape(
             self.n_slots, self.n_spec, r)
         mask_h = packed[:, r:2 * r].astype(bool).reshape(
             self.n_slots, self.n_spec, r)
         acc = packed[:, 2 * r].astype(bool).reshape(self.n_slots, self.n_spec)
+        round_proposals = 0
+        round_accepts = 0
         for slot in slots:
             req = self.slot_req[slot]
             # only proposals inside the request's budget count, so trial
@@ -413,6 +538,13 @@ class SamplerEngine:
             remaining = int(req.max_trials - self.slot_trials[slot])
             usable = min(self.n_spec, remaining)
             row = acc[slot, :usable]
+            if self._tel is not None:
+                span = self._spans[req.rid]
+                span.ticks_held += 1
+                span.rounds += 1
+                span.proposals += usable
+                round_proposals += usable
+                round_accepts += int(row.sum())
             if row.any():
                 first = int(row.argmax())
                 self._retire(slot, SampleResult(
@@ -426,30 +558,58 @@ class SamplerEngine:
                         items=items_h[slot, usable - 1],
                         mask=mask_h[slot, usable - 1],
                         trials=int(self.slot_trials[slot]), accepted=False))
+        if self._tel is not None:
+            self._m.rounds.inc(backend=self.backend)
+            self._m.proposals.inc(round_proposals, backend=self.backend)
+            self._m.accepts.inc(round_accepts, backend=self.backend)
 
     def run(self, max_ticks: int = 10_000) -> Dict[int, SampleResult]:
         """Drain the queue; returns {rid: SampleResult} for every retired
         request.  If the tick budget runs out with requests still queued or
-        in flight, raises ``TickBudgetExhausted``."""
+        in flight, ``on_exhausted`` decides: raise ``TickBudgetExhausted``
+        listing them with their span state (default), warn, or return the
+        partial results; with telemetry a ``tick_budget_exhausted`` flight
+        event is recorded first and the recorder dumped to
+        ``Telemetry.dump_on_error`` if one is set."""
         for _ in range(max_ticks):
             progressed = self.step()
             if not progressed and not self.queue:
                 break
         if self.queue or any(r is not None for r in self.slot_req):
-            unfinished = {
-                req.rid: {"rid": req.rid, "state": "active", "slot": slot,
-                          "trials": int(self.slot_trials[slot])}
-                for slot, req in enumerate(self.slot_req) if req is not None}
-            queued = [req.rid for req in self.queue]
-            raise TickBudgetExhausted(
-                f"run(max_ticks={max_ticks}) exhausted the tick budget with "
-                f"{len(unfinished)} request(s) still in flight (rids "
-                f"{sorted(unfinished)}) and {len(queued)} still queued (rids "
-                f"{queued})", unfinished=unfinished, queued=queued)
+            self._report_exhausted(max_ticks)
         return dict(self.finished)
 
+    def _report_exhausted(self, max_ticks: int):
+        unfinished: Dict[int, dict] = {}
+        for slot, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            span = self._spans.get(req.rid)
+            unfinished[req.rid] = (
+                span.snapshot() if span is not None
+                else {"rid": req.rid, "state": "active", "slot": slot,
+                      "trials": int(self.slot_trials[slot])})
+        queued = [req.rid for req in self.queue]
+        if self._tel is not None:
+            self._tel.flight.record(
+                "tick_budget_exhausted", max_ticks=max_ticks,
+                in_flight=sorted(unfinished), queued=queued,
+                spans=list(unfinished.values()))
+            self._tel.on_error()
+        if self.on_exhausted == "ignore":
+            return
+        msg = (f"run(max_ticks={max_ticks}) exhausted the tick budget with "
+               f"{len(unfinished)} request(s) still in flight "
+               f"(rids {sorted(unfinished)}, span state {unfinished}) and "
+               f"{len(queued)} still queued (rids {queued})")
+        if self.on_exhausted == "warn":
+            warnings.warn(msg, RuntimeWarning, stacklevel=3)
+            return
+        raise TickBudgetExhausted(msg, unfinished=unfinished, queued=queued)
+
     def stats(self) -> dict:
-        """Point-in-time engine snapshot (host only)."""
+        """Point-in-time engine snapshot (host only); with telemetry, the
+        metric snapshot and the flight recorder's depth too."""
         out = {
             "backend": self.backend,
             "ticks": self.ticks,
@@ -459,4 +619,8 @@ class SamplerEngine:
         }
         if self._cat is not None:
             out["catalog_version"] = self._cat.version
+        if self._tel is not None:
+            out["metrics"] = self._tel.registry.snapshot()
+            out["flight_events"] = len(self._tel.flight)
+            out["flight_dropped"] = self._tel.flight.dropped
         return out

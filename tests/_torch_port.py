@@ -12,6 +12,7 @@ a helper needs it, so that the card's tests, on a machine without JAX,
 can import it too."""
 import contextlib
 import os
+import types
 
 import numpy as np
 import torch
@@ -70,3 +71,35 @@ def port_mcmc_states(states, device="cpu"):
     return mcmc_states_from_numpy(
         np.asarray(states.items), np.asarray(states.mask),
         np.asarray(states.minv), np.asarray(states.step), device=device)
+
+
+#: the instruments of the reference's dispatch/transfer accounting and
+#: compile counter (``repro/obs/prof``, ``repro/analysis``), which the port
+#: does not declare until it counts them
+ACCOUNTING = ("ndpp_dispatches_total", "ndpp_transfer_bytes_total",
+              "ndpp_compiles_total")
+
+
+def exposition(registry) -> str:
+    """A registry's text exposition without the ``ACCOUNTING`` instruments
+    (the same function of the same observations on either side)."""
+    return "\n".join(
+        line for line in registry.expose().splitlines()
+        if not any(line.startswith((f"# HELP {n} ", f"# TYPE {n} ", n + "{",
+                                    n + " ", n + "_")) for n in ACCOUNTING))
+
+
+def share_obs_clock(monkeypatch, clock):
+    """Make both sides' spans and flight recorders read ``clock`` (their
+    modules' ``time`` replaced, nothing else), so that timestamps and
+    durations are the same on both sides."""
+    import repro.obs.recorder
+    import repro.obs.spans
+    import repro_torch.obs.recorder
+    import repro_torch.obs.spans
+
+    fake = types.SimpleNamespace(perf_counter=clock, time=clock)
+    for mod in (repro.obs.spans, repro.obs.recorder, repro_torch.obs.spans,
+                repro_torch.obs.recorder):
+        monkeypatch.setattr(mod, "time", fake)
+    return clock

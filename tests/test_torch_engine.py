@@ -104,8 +104,10 @@ def test_unported_options_raise(samplers):
                       mesh=make_sampler_mesh(devices=["cpu"] * 3))
     with pytest.raises(ValueError, match="whole leaf blocks"):
         SamplerEngine(got, mesh=make_sampler_mesh(devices=["cpu"] * 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SamplerEngine(got, telemetry=object())
+    # telemetry= is ported (tests/test_torch_obs.py): an unknown
+    # on_exhausted mode is the reference's configuration error
+    with pytest.raises(ValueError, match="on_exhausted"):
+        SamplerEngine(got, on_exhausted="explode")
     with pytest.raises(ValueError):
         SamplerEngine(object())
     with pytest.raises(ValueError):

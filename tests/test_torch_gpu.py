@@ -1361,3 +1361,69 @@ def test_next_item_server_on_card_matches_cpu(cuda):
     want = cpu.evaluate_mpr(te, trandom.PRNGKey(7))
     np.testing.assert_allclose(rep.model, want.model, rtol=1e-6)
     np.testing.assert_allclose(rep.frequency, want.frequency, rtol=1e-6)
+
+
+# ------------------------------------------ admission scheduler, telemetry
+def _serve_pools(sampler, tel):
+    return {"rej": SamplerEngine(sampler, n_slots=3, n_spec=4, telemetry=tel),
+            "mcmc": SamplerEngine(sampler, n_slots=2, backend="mcmc",
+                                  mcmc_k=3, mcmc_burn_in=16, mcmc_thin=8,
+                                  mcmc_steps_per_tick=8, telemetry=tel)}
+
+
+def test_scheduler_replay_on_card_matches_cpu(cuda):
+    """A seeded trace (priorities, deadlines, pinned and routed requests)
+    replayed through the port's ``Scheduler`` on a virtual clock: on the
+    card, through ``descend_score`` and ``score_all``, every rid gets the
+    CPU replay's ``Outcome`` (status, reason, pool, items, trials)."""
+    from _torch_load import VirtualClock, poisson_trace, replay
+    from repro_torch.obs import Telemetry
+    from repro_torch.serve.scheduler import Scheduler
+
+    cpu, card = _golden_samplers(cuda)
+    runs = []
+    for sampler in (card, cpu):
+        clock, tel = VirtualClock(), Telemetry()
+        sched = Scheduler(_serve_pools(sampler, tel), clock=clock,
+                          telemetry=tel, max_queue=8, on_full="evict")
+        trace = poisson_trace(5, 32, rate=600.0, pools=(None, "rej", "mcmc"),
+                              priorities=(0, 1, 2), deadline_frac=0.25,
+                              deadline_range=(0.002, 0.05))
+        before = (spec_ops.launches, score_ops.launches)
+        runs.append(replay(sched, clock, trace))
+        if sampler is card:
+            assert spec_ops.launches > before[0]
+            assert score_ops.launches > before[1]
+    got, want = runs
+    assert sorted(got) == sorted(want) == list(range(32))
+    assert {o.status for o in want.values()} >= {"done", "shed"}
+    for rid, w in want.items():
+        g = got[rid]
+        assert (g.status, g.reason, g.pool) == (w.status, w.reason,
+                                                w.pool), rid
+        if w.result is not None:
+            assert np.array_equal(g.result.items, w.result.items), rid
+            assert (g.result.trials, g.result.accepted) == (
+                w.result.trials, w.result.accepted), rid
+
+
+def test_engine_telemetry_on_card_is_free(cuda):
+    """An engine with telemetry draws what one without it draws on the
+    card, in as many ticks, with as many ``descend_score`` launches."""
+    from repro_torch.obs import Telemetry
+
+    _, card = _golden_samplers(cuda)
+    runs = []
+    for tel in (None, Telemetry()):
+        eng = SamplerEngine(card, n_slots=4, n_spec=4, telemetry=tel)
+        for i in range(16):
+            eng.submit(SampleRequest(rid=i, seed=i))
+        before = spec_ops.launches
+        out = eng.run()
+        runs.append((out, eng.ticks, spec_ops.launches - before))
+    (bare, ticks, launches), (inst, ticks_t, launches_t) = runs
+    assert (ticks, launches) == (ticks_t, launches_t) and launches > 0
+    for rid in range(16):
+        assert np.array_equal(bare[rid].items, inst[rid].items), rid
+        assert (bare[rid].trials, bare[rid].accepted) == (
+            inst[rid].trials, inst[rid].accepted), rid
